@@ -1,0 +1,4 @@
+r"""Neural-network primitives."""
+
+from .layers import Conv, Dense, ResMLP, TimeEmbedding, layer_norm  # noqa: F401
+from .unet import ModResidualBlock, UNet  # noqa: F401

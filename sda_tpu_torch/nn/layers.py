@@ -1,0 +1,168 @@
+r"""Neural-network primitives: non-affine LayerNorm, time embedding, ResMLP.
+
+Counterpart of :mod:`sda_tpu.nn.layers`. ``Dense`` and ``Conv`` mirror flax's
+``dtype`` semantics: parameters stay float32, and with ``dtype`` set the
+inputs and parameters are cast to it for the product (``bf16: true`` runs
+compute in bfloat16); with ``dtype=None`` the product runs in the promoted
+type of input and parameters.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def layer_norm(x: Tensor, dim: int = -1, eps: float = 1e-5) -> Tensor:
+    r"""Standardizes ``x`` along ``dim`` with no affine terms. Statistics are
+    float32 and use the population variance, as ``sda_tpu.nn.layers``."""
+
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=dim, keepdim=True, correction=0)
+
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _compute_dtype(x: Tensor, weight: Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
+    return torch.promote_types(x.dtype, weight.dtype) if dtype is None else dtype
+
+
+class Dense(nn.Linear):
+    r"""``nn.Linear`` with flax's compute-``dtype`` semantics."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        dtype = _compute_dtype(x, self.weight, self.compute_dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+
+
+class Conv(nn.Module):
+    r"""N-d convolution over channel-first inputs ``(N, C, *spatial)`` with
+    flax's padding rules, padded explicitly:
+
+    - ``'circular'``: wrap ``((k - 1) // 2, k // 2)`` per axis (flax
+      ``'CIRCULAR'``), whatever the stride;
+    - ``'same'``: zeros, ``total = max((ceil(n / s) - 1) s + k - n, 0)`` split
+      ``(total // 2, total - total // 2)`` (flax/XLA ``'SAME'``). For a
+      stride-2 conv that is ``(0, 1)``, where torch's ``padding=1`` would be
+      ``(1, 1)``.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Sequence[int],
+        stride: Sequence[int] = None,
+        padding: str = 'same',
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride) if stride is not None else (1,) * len(self.kernel_size)
+        self.padding = padding
+        self.compute_dtype = dtype
+
+        fan_in = in_channels * math.prod(self.kernel_size)
+        bound = 1 / math.sqrt(fan_in)
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, *self.kernel_size).uniform_(-bound, bound)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def _pads(self, spatial: Sequence[int]) -> Tuple[int, ...]:
+        pads = []
+        for n, k, s in zip(spatial, self.kernel_size, self.stride):
+            if self.padding == 'circular':
+                lo, hi = (k - 1) // 2, k // 2
+            else:
+                total = max((-(-n // s) - 1) * s + k - n, 0)
+                lo, hi = total // 2, total - total // 2
+            pads.append((lo, hi))
+        # F.pad takes the last axis first.
+        return tuple(p for lo_hi in reversed(pads) for p in lo_hi)
+
+    def forward(self, x: Tensor) -> Tensor:
+        dtype = _compute_dtype(x, self.weight, self.compute_dtype)
+        x = x.to(dtype)
+
+        pads = self._pads(x.shape[2:])
+        if self.padding == 'circular':
+            x = F.pad(x, pads, mode='circular')
+        else:
+            x = F.pad(x, pads)
+
+        conv = (F.conv1d, F.conv2d, F.conv3d)[len(self.kernel_size) - 1]
+        return conv(x, self.weight.to(dtype), self.bias.to(dtype), stride=self.stride)
+
+
+class TimeEmbedding(nn.Module):
+    r"""``t -> [cos(pi k t), sin(pi k t)]_{k=1..16} -> Dense(256) -> SiLU ->
+    Dense(features)``, frequencies and phases in float32."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+
+        self.register_buffer(
+            'freqs', math.pi * torch.arange(1, 17, dtype=torch.float32), persistent=False
+        )
+        self.denses = nn.ModuleList([Dense(32, 256, dtype), Dense(256, features, dtype)])
+
+    def forward(self, t: Tensor) -> Tensor:
+        t = self.freqs * t[..., None].float()
+        t = torch.cat((torch.cos(t), torch.sin(t)), dim=-1)
+
+        t = self.denses[0](t)
+        t = F.silu(t)
+        return self.denses[1](t)
+
+
+class ResMLP(nn.Module):
+    r"""Residual MLP: per transition an optional width-changing Dense, then
+    ``x + Dense(act(Dense(layer_norm(x))))`` (``sda_tpu.nn.layers.ResMLP``).
+    Denses are listed in flax creation order."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        hidden_features: Sequence[int] = (64, 64),
+        activation: Callable[[Tensor], Tensor] = F.relu,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+
+        self.activation = activation
+        self.plan = []  # per transition: whether it starts with a width change
+        denses = []
+        before = in_features
+        for after in (*hidden_features, out_features):
+            self.plan.append(after != before)
+            if after != before:
+                denses.append(Dense(before, after, dtype))
+            denses.append(Dense(after, after, dtype))
+            denses.append(Dense(after, after, dtype))
+            before = after
+        self.denses = nn.ModuleList(denses)
+
+    def forward(self, x: Tensor) -> Tensor:
+        layers = iter(self.denses)
+        for widen in self.plan:
+            if widen:
+                x = next(layers)(x)
+            h = layer_norm(x)
+            h = next(layers)(h)
+            h = self.activation(h)
+            h = next(layers)(h)
+            x = x + h
+        return x
