@@ -6,9 +6,11 @@ user calls: a Kolmogorov truth simulated at 256^2 through the CUDA DFT
 kernels (``KolmogorovFlow(256, dt=0.2)``: prior, 64 transitions, keep the last
 32, coarsen 4x to 64^2), then assimilated in the ``coarse`` scenario by the
 committed ``unet_0`` (bf16 compute as its config says; batch 4, 256 steps, 1
-Langevin correction). Before that it builds the kernels and holds each one
-against its plain PyTorch version; after it, it checks one solver transition
-through the kernels against the plain transforms.
+Langevin correction). Before that it builds the kernels, holds each one
+against its plain PyTorch version at the solver's shapes and batches and at
+odd ones, and times every cluster size; after it, it checks the main path's
+launch counts, checks one solver transition through the kernels against the
+plain transforms, and profiles one transition at 1 and 16 fields.
 
     python3 chip_smoke.py
 
@@ -129,20 +131,40 @@ def library_pair(h, w, hm, wm, device):
     return forward, inverse
 
 
-def check_kernels(device, n, size, modes, timed):
+def kernel_flops(n, h, w, fw, cluster):
+    r"""The operations the kernels do for ``n`` fields (either direction):
+    the butterflies and small DFTs of their factorised transforms, counted
+    from the radices (radix 16: 15 twiddle products, 9 inner ones and 8
+    radix-4 DFTs, 272 flops; radix 4: 3 twiddle products and 8 complex
+    additions, 34 flops; radix 2: 10; any other radix r: 14 r^2), for the
+    row pairs of each band along W and the ``fw`` columns along H. Packing
+    and unpacking add a few percent and are not counted."""
+
+    def transform(length):
+        flops = 0
+        for r in dft_kernels.factorise(length):
+            flops += length // r * {16: 272, 4: 34, 2: 10}.get(r, 14 * r * r)
+        return flops
+
+    band = -(-h // cluster)
+    pairs = sum((min(band, h - b * band) + 1) // 2 for b in range(cluster) if b * band < h)
+    return n * (pairs * transform(w) + fw * transform(h))
+
+
+def check_kernels(device, n, h, w, hm, wm, timed):
     r"""Both kernels against their plain versions at one shape; returns the
     errors and, if ``timed``, the times."""
 
-    dft = RealDFT2(size, size, method='kernel', h_modes=modes, w_modes=modes, device=device)
+    dft = RealDFT2(h, w, method='kernel', h_modes=hm, w_modes=wm, device=device)
     bases = (dft.cos_w, dft.sin_w, dft.cos_h, dft.sin_h)
-    g = torch.Generator(device=device).manual_seed(n * size)
-    x = torch.randn(n, size, size, generator=g, device=device)
+    g = torch.Generator(device=device).manual_seed(n * h)
+    x = torch.randn(n, h, w, generator=g, device=device)
 
-    re, im = dft_kernels.rfft2(x, *bases)
+    re, im = dft_kernels.rfft2(x, *bases, dft.plan)
     re0, im0 = (t.contiguous() for t in dft_kernels.rfft2_plain(x, *bases))
-    y = dft_kernels.irfft2(re0, im0, *bases, dft.weight_w)
+    y = dft_kernels.irfft2(re0, im0, *bases, dft.weight_w, dft.plan)
     y0 = dft_kernels.irfft2_plain(re0, im0, *bases, dft.weight_w)
-    rt = dft_kernels.irfft2(re, im, *bases, dft.weight_w)
+    rt = dft_kernels.irfft2(re, im, *bases, dft.weight_w, dft.plan)
     torch.cuda.synchronize()
 
     fwd_err = max((re - re0).abs().max().item(), (im - im0).abs().max().item())
@@ -151,8 +173,8 @@ def check_kernels(device, n, size, modes, timed):
 
     # tests/test_pallas_dft.py's tolerances at 32^2, the forward one scaled
     # by sqrt(H W / 32^2): unit white noise has spectra of size sqrt(H W).
-    fwd_tol = 1e-3 * math.sqrt(size * size / 32**2)
-    log(f'  N={n} {size}^2 modes={modes}: max|err| forward {fwd_err:.3e} (tol {fwd_tol:.1e}), '
+    fwd_tol = 1e-3 * math.sqrt(h * w / 32**2)
+    log(f'  N={n} {h}x{w} modes={hm}/{wm}: max|err| forward {fwd_err:.3e} (tol {fwd_tol:.1e}), '
         f'inverse {inv_err:.3e} (tol 1e-4), round trip {rt_err:.3e} (tol 1e-4)')
     check(fwd_err <= fwd_tol, f'rfft2 kernel disagrees with its plain version: {fwd_err}')
     check(inv_err <= 1e-4, f'irfft2 kernel disagrees with its plain version: {inv_err}')
@@ -162,7 +184,7 @@ def check_kernels(device, n, size, modes, timed):
     if not timed:
         return result
 
-    lib_fwd, lib_inv = library_pair(size, size, modes, modes, device)
+    lib_fwd, lib_inv = library_pair(h, w, hm, wm, device)
     lre, lim = lib_fwd(x)
     lib_err = max((lre - re0).abs().max().item(), (lim - im0).abs().max().item(),
                   (lib_inv(re0, im0) - y0).abs().max().item())
@@ -171,51 +193,85 @@ def check_kernels(device, n, size, modes, timed):
     kh, fw = dft.spectral_shape
     calls = {
         'rfft2': dict(
-            ms=lambda: dft_kernels.rfft2(x, *bases),
+            ms=lambda: dft_kernels.rfft2(x, *bases, dft.plan),
             plain_ms=lambda: dft_kernels.rfft2_plain(x, *bases),
             library_ms=lambda: lib_fwd(x),
         ),
         'irfft2': dict(
-            ms=lambda: dft_kernels.irfft2(re0, im0, *bases, dft.weight_w),
+            ms=lambda: dft_kernels.irfft2(re0, im0, *bases, dft.weight_w, dft.plan),
             plain_ms=lambda: dft_kernels.irfft2_plain(re0, im0, *bases, dft.weight_w),
             library_ms=lambda: lib_inv(re0, im0),
         ),
     }
-    bound, bound_by = dft_bound_ms(n, size, size, kh, fw)
+    bound, bound_by = dft_bound_ms(n, h, w, kh, fw)
     for name in ('rfft2', 'irfft2'):
         on_device = {key: device_ms(fn) for key, fn in calls[name].items()}
+        flops = kernel_flops(n, h, w, fw, dft_kernels.cluster_size(n))
         result[name].update(on_device, bound_ms=bound, bound_by=bound_by)
         log(f'  {name} N={n} device ms (CUDA graph): kernel {on_device["ms"]:.4f}, '
             f'plain {on_device["plain_ms"]:.4f}, library {on_device["library_ms"]:.4f}; '
-            f'bound {bound:.6f} ({bound_by})')
+            f'bound {bound:.6f} ({bound_by}, {bound / on_device["ms"]:.2%} reached); '
+            f'kernel does {flops / 1e6:.2f} MFLOP at {flops / on_device["ms"] / 1e9:.3f} TFLOP/s')
     return result
 
 
-def sweep_tiles(device, batches, size, modes):
-    r"""Every tile width of both kernels, at each batch: device ms, and the
-    error against the plain version. The wrappers' default tiles are marked."""
+def sweep_clusters(device, batches, size, modes):
+    r"""Every cluster size of both kernels, at each batch: device ms, the
+    error against the plain version, and how many clusters can be resident.
+    The wrappers' defaults are marked."""
 
     dft = RealDFT2(size, size, method='kernel', h_modes=modes, w_modes=modes, device=device)
     bases = (dft.cos_w, dft.sin_w, dft.cos_h, dft.sin_h)
+    for cluster in dft_kernels.CLUSTERS:
+        for inverse in (False, True):
+            count, smem = dft_kernels.max_clusters(inverse, dft.plan, cluster)
+            log(f'  {"irfft2" if inverse else "rfft2"} cluster {cluster}: {smem} B shared memory '
+                f'per block, {count} clusters resident at most')
+            check(count >= 1, f'cluster {cluster} cannot be resident')
     for n in batches:
         g = torch.Generator(device=device).manual_seed(n)
         x = torch.randn(n, size, size, generator=g, device=device)
         re0, im0 = (t.contiguous() for t in dft_kernels.rfft2_plain(x, *bases))
         y0 = dft_kernels.irfft2_plain(re0, im0, *bases, dft.weight_w)
-        for tile in dft_kernels.RFFT2_TILES:
-            re, im = dft_kernels.launch_rfft2(x, *bases, tile=tile)
+        for cluster in dft_kernels.CLUSTERS:
+            re, im = dft_kernels.launch_rfft2(x, dft.plan, cluster=cluster)
             err = max((re - re0).abs().max().item(), (im - im0).abs().max().item())
-            check(err <= 1e-3 * math.sqrt(size * size / 32**2), f'rfft2 tile {tile}: error {err}')
-            ms = device_ms(lambda: dft_kernels.launch_rfft2(x, *bases, tile=tile))
-            mark = ' (default)' if tile == dft_kernels.rfft2_tile(n) else ''
-            log(f'  rfft2 N={n} tile {tile}: {ms:.4f} ms, max|err| {err:.2e}{mark}')
-        for tile in dft_kernels.IRFFT2_TILES:
-            y = dft_kernels.launch_irfft2(re0, im0, *bases, dft.weight_w, tile=tile)
+            check(err <= 1e-3 * math.sqrt(size * size / 32**2), f'rfft2 cluster {cluster}: error {err}')
+            ms = device_ms(lambda: dft_kernels.launch_rfft2(x, dft.plan, cluster=cluster))
+            mark = ' (default)' if cluster == dft_kernels.cluster_size(n) else ''
+            log(f'  rfft2 N={n} cluster {cluster}: {ms:.4f} ms, max|err| {err:.2e}{mark}')
+        for cluster in dft_kernels.CLUSTERS:
+            y = dft_kernels.launch_irfft2(re0, im0, dft.weight_w, dft.plan, cluster=cluster)
             err = (y - y0).abs().max().item()
-            check(err <= 1e-4, f'irfft2 tile {tile}: error {err}')
-            ms = device_ms(lambda: dft_kernels.launch_irfft2(re0, im0, *bases, dft.weight_w, tile=tile))
-            mark = ' (default)' if tile == dft_kernels.irfft2_tile(n) else ''
-            log(f'  irfft2 N={n} tile {tile}: {ms:.4f} ms, max|err| {err:.2e}{mark}')
+            check(err <= 1e-4, f'irfft2 cluster {cluster}: error {err}')
+            ms = device_ms(lambda: dft_kernels.launch_irfft2(re0, im0, dft.weight_w, dft.plan, cluster=cluster))
+            mark = ' (default)' if cluster == dft_kernels.cluster_size(n) else ''
+            log(f'  irfft2 N={n} cluster {cluster}: {ms:.4f} ms, max|err| {err:.2e}{mark}')
+
+
+def profile_transition(chain, n, device):
+    r"""One solver transition of ``n`` fields under ``torch.profiler``: the
+    device's busy share (kernel time over the transition's wall time, which
+    the profiler lengthens) and the five kernels that took most device time."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x = chain.prior((n,), generator=torch.Generator(device=device).manual_seed(2))
+    chain.transition(x)  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        chain.transition(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    check(busy_us > 0, 'the profiler saw no device time')
+    log(f'  N={n}: one transition {wall_us / 1e3:.2f} ms wall under the profiler, device busy '
+        f'{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), {sum(e.count for e in kernels)} kernel launches')
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f'    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}')
 
 
 def main():
@@ -241,9 +297,11 @@ def main():
         dft_kernels.library()
 
     with phase('kernels against their plain versions'):
-        main_shape = check_kernels(device, 1, SIZE, MODES, timed=True)  # the solver's batch of one field
-        check_kernels(device, CHUNK, SIZE, MODES, timed=True)
-        check_kernels(device, 4, 64, 22, timed=False)
+        main_shape = check_kernels(device, 1, SIZE, SIZE, MODES, MODES, timed=True)  # the solver's one field
+        for n in (CHUNK, 4 * CHUNK):
+            check_kernels(device, n, SIZE, SIZE, MODES, MODES, timed=True)
+        for shape in ((4, 64, 64, 22, 22), (3, 32, 32, 11, 11), (2, 45, 80, 12, 22), (3, 37, 50, 13, 17)):
+            check_kernels(device, *shape, timed=False)
 
         dft = RealDFT2(32, 32, method='kernel', h_modes=11, w_modes=11, device=device)
         mat = RealDFT2(32, 32, method='matmul', h_modes=11, w_modes=11, device=device)
@@ -260,8 +318,8 @@ def main():
         log(f'  gradient through both kernels vs plain: max|err| {grad_err:.3e} (tol 1e-2)')
         check(grad_err <= 1e-2, f'kernel gradients disagree: {grad_err}')
 
-    with phase('tile widths'):
-        sweep_tiles(device, (1, 4, CHUNK), SIZE, MODES)
+    with phase('cluster sizes'):
+        sweep_clusters(device, (1, 2, 4, CHUNK, 4 * CHUNK), SIZE, MODES)
 
     # -- The main path: truth, then assimilation. Counts from here on. ----
     dft_kernels.reset_launches()
@@ -310,6 +368,12 @@ def main():
         f'(~{sum(launches.values()) / TRUTH_LENGTH:.0f} per simulated frame)')
     for name, count in launches.items():
         check(count > 0, f'the main path never launched {name}')
+    # Forcing, prior and first to_spectral, then one launch per direction
+    # per call site: 3 forward per substep, 3 inverse per substep and one
+    # to_velocity per transition.
+    expected = {'rfft2': 3 + 3 * TRUTH_LENGTH * chain.steps,
+                'irfft2': 1 + TRUTH_LENGTH * (3 * chain.steps + 1)}
+    check(launches == expected, f'main path launches {launches}, expected {expected}')
 
     with phase('one transition: kernels vs plain transforms'):
         plain = KolmogorovFlow(SIZE, dt=0.2, dft_method='matmul', device=device)
@@ -318,6 +382,10 @@ def main():
         rel = ((a - b).norm() / b.norm()).item()
         log(f'relative difference {rel:.3e} (limit 1e-3)')
         check(rel < 1e-3, f'kernel transition differs from the plain one by {rel}')
+
+    with phase('profile of one transition'):
+        for n in (1, CHUNK):
+            profile_transition(chain, n, device)
 
     with phase('kernels summary'):
         source = 'sda_tpu_torch/csrc/dft.cu'

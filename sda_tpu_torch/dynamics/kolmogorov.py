@@ -5,8 +5,9 @@ same physics and numerics: vorticity form on the periodic square, spectra as
 ``(re, im)`` pairs truncated by the 2/3 rule, viscosity and drag integrated
 exactly by an integrating factor, advection and forcing by classical RK3 over
 CFL substeps. Every transform goes through :class:`~sda_tpu_torch.ops.RealDFT2`,
-so on the card (``dft_method='auto'``) through the CUDA DFT kernels: 15 per
-substep. Python loops take the place of ``fori_loop``/``scan``. States are
+so on the card (``dft_method='auto'``) through the CUDA DFT kernels, one
+launch per direction per call site: 3 forward and 3 inverse launches per
+substep (each batches 1 forward or 4 inverse transforms). Python loops take the place of ``fori_loop``/``scan``. States are
 channel-first velocity fields ``(..., 2, H, W)``.
 """
 
@@ -69,6 +70,7 @@ class KolmogorovFlow(MarkovChain):
 
         self.ka = self.dft.freqs_h[:, None]
         self.kb = self.dft.freqs_w[None, :]
+        self.neg_ka, self.neg_kb = -self.ka, -self.kb
         self.k2 = self.ka**2 + self.kb**2
         self.inv_k2 = torch.where(self.k2 > 0, 1.0 / torch.where(self.k2 > 0, self.k2, 1.0), 0.0)
 
@@ -99,57 +101,63 @@ class KolmogorovFlow(MarkovChain):
     def to_spectral(self, x: Tensor) -> Tuple[Spectral, Tensor]:
         r"""Velocity ``(..., 2, H, W)`` -> (vorticity spectrum pair, mean)."""
 
-        u = x[..., 0, :, :]
-        v = x[..., 1, :, :]
-
-        ur, ui = self.dft.rfft2(u)
-        vr, vi = self.dft.rfft2(v)
+        uv = x[..., :2, :, :]
+        r, i = self.dft.rfft2(uv)  # one launch for both components
+        (ur, vr), (ui, vi) = r.unbind(-3), i.unbind(-3)
 
         wr = -self.ka * vi + self.kb * ui
         wi = self.ka * vr - self.kb * ur
 
-        mean = torch.stack((u.mean(dim=(-2, -1)), v.mean(dim=(-2, -1))), dim=-1)
+        mean = uv.mean(dim=(-2, -1))
 
         return (wr, wi), mean
 
-    def _velocity_spectra(self, w: Spectral) -> Tuple[Spectral, Spectral]:
-        r"""Stream-function inversion: u_hat = i kb psi, v_hat = -i ka psi."""
+    def _velocity_spectra(self, w: Spectral, re: Tensor, im: Tensor) -> None:
+        r"""Stream-function inversion, written into ``re, im (..., 2, Kh, Fw)``
+        (u then v): u_hat = i kb psi, v_hat = -i ka psi."""
 
         wr, wi = w
         pr = wr * self.inv_k2
         pi = wi * self.inv_k2
 
-        u_hat = (-self.kb * pi, self.kb * pr)
-        v_hat = (self.ka * pi, -self.ka * pr)
+        torch.mul(self.neg_kb, pi, out=re[..., 0, :, :])
+        torch.mul(self.kb, pr, out=im[..., 0, :, :])
+        torch.mul(self.ka, pi, out=re[..., 1, :, :])
+        torch.mul(self.neg_ka, pr, out=im[..., 1, :, :])
 
-        return u_hat, v_hat
+    def _spectra(self, w: Spectral, count: int) -> Tuple[Tensor, Tensor]:
+        r"""An empty ``(re, im)`` pair of ``count`` spectra per field of ``w``,
+        stacked on axis -3, for one batched inverse transform."""
+
+        shape = w[0].shape[:-2] + (count,) + w[0].shape[-2:]
+        return torch.empty(shape, device=w[0].device), torch.empty(shape, device=w[0].device)
 
     def to_velocity(self, w: Spectral, mean: Tensor) -> Tensor:
         r"""(vorticity spectrum pair, mean flow) -> velocity ``(..., 2, H, W)``."""
 
-        u_hat, v_hat = self._velocity_spectra(w)
+        re, im = self._spectra(w, 2)
+        self._velocity_spectra(w, re, im)
 
-        u = self.dft.irfft2(*u_hat)
-        v = self.dft.irfft2(*v_hat)
-
-        return torch.stack((u, v), dim=-3) + mean[..., None, None]
+        return self.dft.irfft2(re, im) + mean[..., None, None]
 
     # -- Dynamics ----------------------------------------------------------
 
     def _nonlinear(self, w: Spectral) -> Spectral:
-        r"""Dealiased advection + forcing: 4 inverse and 1 forward transforms."""
+        r"""Dealiased advection + forcing: 4 inverse transforms (u, v and the
+        vorticity's two derivatives) in one call, then 1 forward."""
 
         wr, wi = w
-        u_hat, v_hat = self._velocity_spectra(w)
+        re, im = self._spectra(w, 4)
+        self._velocity_spectra(w, re[..., :2, :, :], im[..., :2, :, :])
+        torch.mul(self.neg_ka, wi, out=re[..., 2, :, :])
+        torch.mul(self.ka, wr, out=im[..., 2, :, :])
+        torch.mul(self.neg_kb, wi, out=re[..., 3, :, :])
+        torch.mul(self.kb, wr, out=im[..., 3, :, :])
 
-        u = self.dft.irfft2(*u_hat)
-        v = self.dft.irfft2(*v_hat)
-
-        wa = self.dft.irfft2(-self.ka * wi, self.ka * wr)
-        wb = self.dft.irfft2(-self.kb * wi, self.kb * wr)
+        u, v, wa, wb = self.dft.irfft2(re, im).unbind(-3)
 
         # The truncated forward transform is the 2/3-rule dealiasing.
-        ar, ai = self.dft.rfft2(u * wa + v * wb)
+        ar, ai = self.dft.rfft2(torch.addcmul(u * wa, v, wb))
 
         return (-ar + self.forcing_re, -ai + self.forcing_im)
 
@@ -235,8 +243,8 @@ class KolmogorovFlow(MarkovChain):
             )
         noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
 
-        ur, ui = self.dft.rfft2(noise[..., 0, :, :])
-        vr, vi = self.dft.rfft2(noise[..., 1, :, :])
+        r, i = self.dft.rfft2(noise)
+        (ur, vr), (ui, vi) = r.unbind(-3), i.unbind(-3)
 
         k = torch.sqrt(self.k2)
         g = (k / peak_wavenumber) ** 2 * torch.exp(-((k / peak_wavenumber) ** 2))
@@ -249,9 +257,7 @@ class KolmogorovFlow(MarkovChain):
         ur, ui = ur - self.ka * dr, ui - self.ka * di
         vr, vi = vr - self.kb * dr, vi - self.kb * di
 
-        u = self.dft.irfft2(ur, ui)
-        v = self.dft.irfft2(vr, vi)
-        uv = torch.stack((u, v), dim=-3)
+        uv = self.dft.irfft2(torch.stack((ur, vr), dim=-3), torch.stack((ui, vi), dim=-3))
 
         speed = torch.sqrt(torch.sum(uv**2, dim=-3, keepdim=True))
         peak = torch.amax(speed, dim=(-2, -1), keepdim=True)

@@ -94,6 +94,8 @@ class RealDFT2:
             dw[-1] = 1.0
         self.weight_w = f32(dw)
 
+        self.plan = dft_kernels.Plan(height, width, freqs_h, w_modes, device) if method == 'kernel' else None
+
     def _bases(self):
         return self.cos_w, self.sin_w, self.cos_h, self.sin_h
 
@@ -105,7 +107,7 @@ class RealDFT2:
 
         batch = x.shape[:-2]
         x = x.reshape((-1,) + x.shape[-2:]).float().contiguous()
-        re, im = dft_kernels.rfft2(x, *self._bases())
+        re, im = dft_kernels.rfft2(x, *self._bases(), self.plan)
 
         return re.reshape(batch + re.shape[1:]), im.reshape(batch + im.shape[1:])
 
@@ -119,6 +121,6 @@ class RealDFT2:
         batch = re.shape[:-2]
         re = re.reshape((-1,) + re.shape[-2:]).float().contiguous()
         im = im.reshape((-1,) + im.shape[-2:]).float().contiguous()
-        x = dft_kernels.irfft2(re, im, *self._bases(), self.weight_w)
+        x = dft_kernels.irfft2(re, im, *self._bases(), self.weight_w, self.plan)
 
         return x.reshape(batch + x.shape[1:])

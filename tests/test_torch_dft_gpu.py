@@ -37,11 +37,14 @@ def randn(seed, *shape, device):
     return torch.randn(*shape, generator=g, device=device)
 
 
-# (batch, height, width, h_modes, w_modes): the solver's shapes at 256^2 and
-# 64^2, the Pallas tests' 32^2, and a rectangle whose odd height leaves the
-# inverse kernel's last row tile partial.
-SHAPES = [(1, 256, 256, 86, 86), (4, 256, 256, 86, 86), (4, 64, 64, 22, 22),
-          (3, 32, 32, 11, 11), (2, 45, 80, 12, 22)]
+# (batch, height, width, h_modes, w_modes): the solver's shapes at 256^2
+# (one field, 4, generate.py's chunk of 16, and 64) and 64^2, the Pallas
+# tests' 32^2, a rectangle whose odd height leaves the last bands partial
+# (radices 3, 3, 5 and 4, 4, 5), and a prime height (one direct 37-point DFT)
+# with a width of rows that are not 16-byte multiples (no bulk copy).
+SHAPES = [(1, 256, 256, 86, 86), (4, 256, 256, 86, 86), (16, 256, 256, 86, 86),
+          (64, 256, 256, 86, 86), (4, 64, 64, 22, 22), (3, 32, 32, 11, 11),
+          (2, 45, 80, 12, 22), (3, 37, 50, 13, 17)]
 
 
 @pytest.mark.parametrize('n, h, w, hm, wm', SHAPES)
@@ -50,13 +53,13 @@ def test_kernels_match_plain(cuda, n, h, w, hm, wm):
     bases = (dft.cos_w, dft.sin_w, dft.cos_h, dft.sin_h)
     x = randn(0, n, h, w, device=cuda)
 
-    re, im = dft_kernels.rfft2(x, *bases)
+    re, im = dft_kernels.rfft2(x, *bases, dft.plan)
     re0, im0 = (t.contiguous() for t in dft_kernels.rfft2_plain(x, *bases))
     tol = 1e-3 * math.sqrt(h * w / 32**2)
     torch.testing.assert_close(re, re0, atol=tol, rtol=0)
     torch.testing.assert_close(im, im0, atol=tol, rtol=0)
 
-    y = dft_kernels.irfft2(re0, im0, *bases, dft.weight_w)
+    y = dft_kernels.irfft2(re0, im0, *bases, dft.weight_w, dft.plan)
     y0 = dft_kernels.irfft2_plain(re0, im0, *bases, dft.weight_w)
     torch.testing.assert_close(y, y0, atol=1e-4, rtol=0)
 
@@ -64,8 +67,14 @@ def test_kernels_match_plain(cuda, n, h, w, hm, wm):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize('n, h, w, hm, wm', [(2, 256, 256, 86, 86), (2, 45, 80, 12, 22)])
-def test_every_tile_matches_plain(cuda, n, h, w, hm, wm):
+@pytest.mark.parametrize('n, h, w, hm, wm', [
+    (2, 256, 256, 86, 86), (2, 45, 80, 12, 22), (2, 37, 50, 13, 17), (1, 256, 256, None, None),
+])
+def test_every_cluster_matches_plain(cuda, n, h, w, hm, wm):
+    r"""Every cluster size the launchers take, including the partial bands
+    of 45x80 and 37x50 and the full (fftfreq-ordered) spectrum; each one can
+    be resident on the card."""
+
     dft = RealDFT2(h, w, method='kernel', h_modes=hm, w_modes=wm, device=cuda)
     bases = (dft.cos_w, dft.sin_w, dft.cos_h, dft.sin_h)
     x = randn(4, n, h, w, device=cuda)
@@ -73,15 +82,17 @@ def test_every_tile_matches_plain(cuda, n, h, w, hm, wm):
     y0 = dft_kernels.irfft2_plain(re0, im0, *bases, dft.weight_w)
     tol = 1e-3 * math.sqrt(h * w / 32**2)
 
-    for tile in dft_kernels.RFFT2_TILES:
-        re, im = dft_kernels.launch_rfft2(x, *bases, tile=tile)
+    for cluster in dft_kernels.CLUSTERS:
+        assert dft_kernels.max_clusters(False, dft.plan, cluster)[0] >= 1
+        re, im = dft_kernels.launch_rfft2(x, dft.plan, cluster=cluster)
         torch.testing.assert_close(re, re0, atol=tol, rtol=0)
         torch.testing.assert_close(im, im0, atol=tol, rtol=0)
-    for tile in dft_kernels.IRFFT2_TILES:
-        y = dft_kernels.launch_irfft2(re0, im0, *bases, dft.weight_w, tile=tile)
+    for cluster in dft_kernels.CLUSTERS:
+        assert dft_kernels.max_clusters(True, dft.plan, cluster)[0] >= 1
+        y = dft_kernels.launch_irfft2(re0, im0, dft.weight_w, dft.plan, cluster=cluster)
         torch.testing.assert_close(y, y0, atol=1e-4, rtol=0)
     with pytest.raises(ValueError):
-        dft_kernels.launch_rfft2(x, *bases, tile=3)
+        dft_kernels.launch_rfft2(x, dft.plan, cluster=3)
 
 
 def test_gradients_match_plain(cuda):
@@ -122,6 +133,15 @@ def test_launches_are_counted(cuda):
 
     assert dft_kernels.launches == {'rfft2': 1, 'irfft2': 2}
 
+    # The solver's call sites: one launch per direction, whatever the batch.
+    from sda_tpu_torch.dynamics import KolmogorovFlow
+
+    chain = KolmogorovFlow(size=64, dt=0.2, device=cuda)
+    w, mean = chain.to_spectral(chain.prior((3,), generator=torch.Generator(device=cuda).manual_seed(0)))
+    dft_kernels.reset_launches()
+    chain._nonlinear(w)
+    assert dft_kernels.launches == {'rfft2': 1, 'irfft2': 1}
+
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     dft = RealDFT2(32, 32, h_modes=11, w_modes=11, device=cuda)
@@ -129,10 +149,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x = randn(3, 2, 32, 32, device=cuda)
 
     with pytest.raises(ValueError):
-        dft_kernels.rfft2(x.double(), *bases)
+        dft_kernels.rfft2(x.double(), *bases, dft.plan)
     with pytest.raises(ValueError):
-        dft_kernels.rfft2(x.transpose(1, 2), *bases)
+        dft_kernels.rfft2(x.transpose(1, 2), *bases, dft.plan)
     with pytest.raises(ValueError):
-        dft_kernels.rfft2(x[..., :16].contiguous(), *bases)
+        dft_kernels.rfft2(x[..., :16].contiguous(), *bases, dft.plan)
     with pytest.raises(ValueError):
-        dft_kernels.rfft2(x, dft.cos_w.cpu(), *bases[1:])
+        dft_kernels.rfft2(x, *bases)  # no plan
+    cpu = RealDFT2(32, 32, method='kernel', h_modes=11, w_modes=11, device='cpu')
+    with pytest.raises(ValueError):
+        dft_kernels.rfft2(x, *bases, cpu.plan)

@@ -112,3 +112,37 @@ def test_make_chain_is_the_experiment_chain():
     assert (chain.size, chain.dt, chain.steps) == (64, 0.2, 21)
     assert chain.dft.method == 'matmul'  # 'auto' on the CPU
     assert chain.dft.spectral_shape == (43, 22)
+
+
+@pytest.mark.parametrize('site, calls', [
+    ('to_spectral', {'rfft2': 1, 'irfft2': 0}),
+    ('to_velocity', {'rfft2': 0, 'irfft2': 1}),
+    ('_nonlinear', {'rfft2': 1, 'irfft2': 1}),
+    ('prior', {'rfft2': 1, 'irfft2': 1}),
+])
+def test_one_transform_call_per_direction(monkeypatch, site, calls):
+    r"""Each call site of the solver makes one ``rfft2``/``irfft2`` call through
+    RealDFT2, whatever the number of fields it transforms (so one kernel
+    launch per direction on the card)."""
+
+    from sda_tpu_torch.ops import dft_kernels
+
+    chain = KolmogorovFlow(32, dt=0.2, dft_method='kernel', device='cpu')
+    x = t(np.random.RandomState(0).randn(3, 2, 32, 32).astype(np.float32))
+    w, mean = chain.to_spectral(x)
+
+    counted = {'rfft2': 0, 'irfft2': 0}
+    for name in counted:
+        def counting(*args, name=name, fn=getattr(dft_kernels, name)):
+            counted[name] += 1
+            return fn(*args)
+        monkeypatch.setattr(dft_kernels, name, counting)
+
+    {
+        'to_spectral': lambda: chain.to_spectral(x),
+        'to_velocity': lambda: chain.to_velocity(w, mean),
+        '_nonlinear': lambda: chain._nonlinear(w),
+        'prior': lambda: chain.prior((3,)),
+    }[site]()
+
+    assert counted == calls
