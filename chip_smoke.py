@@ -12,6 +12,16 @@ odd ones, and times every cluster size; after it, it checks the main path's
 launch counts, checks one solver transition through the kernels against the
 plain transforms, and profiles one transition at 1 and 16 fields.
 
+Then the training path: ``unet_0``'s eps in bf16 against float32; training
+data simulated through the kernels (36 trajectories at 256^2, coarsened to
+64^2); one AdamW step of ``unet_0`` on the card against the same step on the
+CPU; ``unet_0``'s architecture trained from flax's initialisation at full
+width (bf16 compute, batch 32), timed and profiled, its weights written and
+read back; and the Lorenz family end to end: the published data simulation,
+64 epochs of the local model, the 9 committed Lorenz checkpoints against
+their golden entries, and sampled ``log_p`` of ``local_k2_0`` and
+``global_0`` against the JAX package's.
+
     python3 chip_smoke.py
 
 Phases print flushed, timestamped start and end lines. Any failure exits
@@ -25,15 +35,26 @@ import contextlib
 import json
 import math
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
+from sda_tpu_torch import prng
+from sda_tpu_torch.diffusion import VPSDE
 from sda_tpu_torch.dynamics import KolmogorovFlow
 from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate
 from sda_tpu_torch.experiments.kolmogorov.generate import simulate
-from sda_tpu_torch.experiments.kolmogorov.utils import PATH, load_score, make_chain, make_trajectory_eps
+from sda_tpu_torch.experiments.kolmogorov.train import CONFIG as KOLMOGOROV_CONFIG
+from sda_tpu_torch.experiments.kolmogorov.utils import load_score, make_chain, make_score, make_trajectory_eps
+from sda_tpu_torch.experiments.lorenz import generate as lorenz_generate
+from sda_tpu_torch.experiments.lorenz import train as lorenz_train
+from sda_tpu_torch.experiments.lorenz import utils as lorenz_utils
+from sda_tpu_torch.nn import reset_parameters
 from sda_tpu_torch.ops import RealDFT2, dft_kernels
+from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32 = 67e12
@@ -44,6 +65,45 @@ CHUNK = 16  # trajectories per program in experiments/kolmogorov/generate.py
 TRUTH_LENGTH, TRUTH_KEEP = 64, 32
 SAMPLES, STEPS, CORRECTIONS = 4, 256, 1
 RESIDUAL_LIMIT = 0.2  # twice the observation noise
+
+REPO = Path(__file__).resolve().parent
+UNET_0 = REPO / 'experiments/kolmogorov/storage/runs/unet_0'
+LORENZ_RUNS = REPO / 'experiments/lorenz/storage/runs'
+GOLDEN = REPO / 'tests/golden/committed_artifacts.json'
+
+# unet_0's eps in bf16 against float32 on the golden probe: the CPU test's
+# bound on the port's bf16 against the JAX package's (twice what was
+# measured there: rms 0.0080, max 0.031).
+BF16_RMS, BF16_MAX = 0.015, 0.08
+
+# Training data for unet_0: 32 + 4 trajectories, cut from the experiment's
+# 1,024 x 128 transitions (keep 64); 64 transitions as the truth, keep 16.
+TRAIN_TRAJ, VALID_TRAJ, DATA_LENGTH, DATA_KEEP = 32, 4, 64, 16
+TRAIN_BATCH, TRAIN_STEPS, WARMUP = 32, 32, 3
+
+# One AdamW step, card (TF32 off) against CPU: float32 sums in another
+# order. Adam's first update is lr g / (|g| + 1e-8), about lr sign(g)
+# whatever |g|, and moves by at most lr |dg| / |g|: a parameter whose
+# gradient differs by more than STEP_GRAD_FREE of itself (a gradient at
+# float32 noise level) may move by up to 2 lr on one side only. Those are
+# counted (at most STEP_UNDETERMINED of all); the others must agree within
+# STEP_PARAM_ATOL, which lr STEP_GRAD_FREE = 4e-6 leaves room for.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-4, 1e-5
+STEP_GRAD_FREE, STEP_UNDETERMINED = 2e-2, 1e-3
+
+# The JAX package's final Lorenz log_p on the CPU, from
+# tests/lorenz_log_p_reference.py (seeds 0, 1, 2): the mean over the seeds
+# of each seed's mean and median over windows, and their spread (max - min).
+# local_k2_0's mean spread is set by one window off the attractor at seed 2
+# (mean -5.73e6), so its mean gate holds nothing and its median gate carries
+# the check. The port's value must lie within LOG_P_SPREADS spreads.
+LOG_P_REFERENCE = {
+    'local_k2_0': {'mean': (-1910583.693745454, 5731757.740476131),
+                   'median': (2.404589891433716, 0.0021343231201171875)},
+    'global_0': {'mean': (1.3309656381607056, 0.09330224990844727),
+                 'median': (1.871457854906718, 0.022673726081848145)},
+}
+LOG_P_SPREADS = 10
 
 T0 = time.perf_counter()
 
@@ -265,13 +325,253 @@ def profile_transition(chain, n, device):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
 
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_busy(prof, wall_us, f'N={n}: one transition')
+
+
+def device_busy(prof, wall_us, label, top=5):
+    r"""Logs the device's busy share of a profiled window, the ``top``
+    kernels with most device time and the share of convolution and matmul
+    kernels (cuDNN's and cuBLAS's). User annotations on the device timeline
+    (such as the optimizer's step range) span kernels and are left out."""
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, 'is_user_annotation', False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, 'the profiler saw no device time')
-    log(f'  N={n}: one transition {wall_us / 1e3:.2f} ms wall under the profiler, device busy '
-        f'{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), {sum(e.count for e in kernels)} kernel launches')
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+    products = [e for e in kernels if any(w in e.key.lower() for w in ('conv', 'gemm', 'xmma', 'cutlass', 'sm90'))]
+    product_us = sum(e.self_device_time_total for e in products)
+    log(f'  {label}: {wall_us / 1e3:.2f} ms wall under the profiler, device busy '
+        f'{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), {sum(e.count for e in kernels)} kernel launches; '
+        f'convolutions and matmuls {product_us / 1e3:.2f} ms ({product_us / busy_us:.1%} of busy)')
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}')
+
+
+def window_batch(dataset, generator, batch):
+    r"""``batch`` random windows of ``dataset``, as the trainer crops them."""
+
+    idx, _ = dataset.epoch_batches(batch, generator)
+    return dataset.crop(dataset.data[idx[0]], generator)
+
+
+def unet_0_step(x, t, z, device):
+    r"""One AdamW step of the committed ``unet_0`` (float32) on ``x`` with
+    the loss's ``t`` and noise given; returns the loss, the gradients and
+    the parameters after the step, on the CPU."""
+
+    config = dict(KOLMOGOROV_CONFIG, size=64)
+    module = make_score(**config)
+    module.load_state_dict(params_from_flax(load_params(UNET_0 / 'state.msgpack')))
+    module.to(device)
+    data = TrajectoryDataset(x[:, None], device=device)
+    trainer = Trainer(VPSDE(shape=tuple(x.shape[1:])), module, data, data, **config)
+
+    loss = trainer.train_step(x.to(device), t.to(device), z.to(device))
+    grads = {n: p.grad.detach().cpu() for n, p in module.named_parameters()}
+    params = {n: p.detach().cpu() for n, p in module.named_parameters()}
+    return loss.item(), grads, params
+
+
+def lorenz_probe(run, config):
+    shape = (2, 3 * config['window']) if run.startswith('local') else (2, 3, 32)
+    return prng.normal(0, shape)
+
+
+def bf16_against_f32(device):
+    r"""``unet_0``'s eps with its config's bf16 compute against float32 (TF32
+    off) on the golden probe."""
+
+    x = prng.normal(0, (1, 10, 64, 64)).to(device)
+    t = torch.full((1,), 0.5, device=device)
+    with torch.no_grad():
+        bf16 = load_score(UNET_0, device=device)[0](x, t).double()
+        f32 = load_score(UNET_0, device=device, bf16=False)[0](x, t).double()
+    rms, err = (bf16 - f32).square().mean().sqrt().item(), (bf16 - f32).abs().max().item()
+    log(f'unet_0 eps bf16 vs f32 (TF32 off): rms {rms:.5f} (limit {BF16_RMS}), max {err:.5f} (limit {BF16_MAX})')
+    check(rms <= BF16_RMS and err <= BF16_MAX, f'bf16 eps differs from f32: rms {rms}, max {err}')
+
+
+def training_data(chain, device):
+    r"""Training and validation windows for ``unet_0``, simulated through the
+    solver as ``generate.py`` does (cut to size); returns the two datasets
+    and the seconds taken."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = simulate(
+        chain, batch=TRAIN_TRAJ + VALID_TRAJ, length=DATA_LENGTH, keep=DATA_KEEP, coarse=chain.size // 64,
+        generator=torch.Generator(device=device).manual_seed(1),
+    )
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    check(tuple(data.shape) == (TRAIN_TRAJ + VALID_TRAJ, DATA_KEEP, 2, 64, 64), f'data {tuple(data.shape)}')
+    check(bool(torch.isfinite(data).all()), 'non-finite training data')
+    log(f'{TRAIN_TRAJ + VALID_TRAJ} trajectories {tuple(data.shape[1:])} in {data_s:.2f}s '
+        f'({data_s / DATA_LENGTH * 1e3:.1f} ms per transition of {TRAIN_TRAJ + VALID_TRAJ} fields); '
+        f'std {data.std().item():.3f}')
+    trainset = TrajectoryDataset(data[:TRAIN_TRAJ], window=5, flatten=True, device=device)
+    validset = TrajectoryDataset(data[TRAIN_TRAJ:], window=5, flatten=True, device=device)
+    return trainset, validset, data_s
+
+
+def step_card_against_cpu(trainset, device):
+    r"""One AdamW step of ``unet_0`` in float32 on the card and on the CPU,
+    same batch, ``t`` and noise."""
+
+    g = torch.Generator(device=device).manual_seed(2)
+    x = window_batch(trainset, g, 2).cpu()
+    g = torch.Generator().manual_seed(3)
+    t, z = torch.rand(2, generator=g), torch.randn(x.shape, generator=g)
+    loss_c, grads_c, params_c = unet_0_step(x, t, z, device)
+    loss_h, grads_h, params_h = unet_0_step(x, t, z, 'cpu')
+
+    grad_err = math.sqrt(sum((grads_c[n] - grads_h[n]).square().sum().item() for n in grads_h)
+                         / sum(grads_h[n].square().sum().item() for n in grads_h))
+    worst, undetermined, total = 0.0, 0, 0
+    for n, g_h in grads_h.items():
+        free = (grads_c[n] - g_h).abs() > STEP_GRAD_FREE * g_h.abs()
+        diff = (params_c[n] - params_h[n]).abs()
+        worst = max(worst, diff[~free].max().item() if (~free).any() else 0.0)
+        undetermined += int(free.sum())
+        total += g_h.numel()
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    log(f'loss card {loss_c:.6f} CPU {loss_h:.6f} (relative {loss_err:.2e}, limit {STEP_LOSS_RTOL}); '
+        f'gradients relative L2 {grad_err:.2e} (limit {STEP_GRAD_RTOL}); max |dparam| after the step '
+        f'{worst:.2e} (limit {STEP_PARAM_ATOL}) over {total - undetermined} of {total} parameters, '
+        f'{undetermined} with a gradient at noise level (limit {STEP_UNDETERMINED * total:.0f})')
+    check(loss_err <= STEP_LOSS_RTOL, f'loss differs: {loss_c} vs {loss_h}')
+    check(grad_err <= STEP_GRAD_RTOL, f'gradients differ: {grad_err}')
+    check(worst <= STEP_PARAM_ATOL, f'parameters differ after the step: {worst}')
+    check(undetermined <= STEP_UNDETERMINED * total, f'{undetermined} gradients at noise level')
+
+
+def full_width_training(trainset, validset, device):
+    r"""``unet_0``'s architecture from flax's initialisation, bf16 compute,
+    float32 parameters: the committed model against a fresh one, timed
+    steps, a profile, one epoch, and its weights written and read back.
+    Returns ms per step."""
+
+    config = dict(KOLMOGOROV_CONFIG, bf16=True, size=64, batch_size=TRAIN_BATCH)
+    g = torch.Generator(device=device).manual_seed(4)
+    fixed = window_batch(trainset, g, TRAIN_BATCH)
+    fixed_t = torch.rand(fixed.shape[0], generator=g, device=device)
+    fixed_z = torch.randn(fixed.shape, generator=g, device=device)
+    sde = VPSDE(shape=tuple(fixed.shape[1:]))
+
+    def fixed_loss(module):
+        with torch.no_grad():
+            return sde.loss(fixed, eps=module, t=fixed_t, z=fixed_z).item()
+
+    module = reset_parameters(make_score(**config), torch.Generator().manual_seed(0)).to(device)
+    committed, fresh = fixed_loss(load_score(UNET_0, device=device)[0]), fixed_loss(module)
+    log(f'denoising loss on {len(fixed)} simulated windows: committed unet_0 {committed:.4f}, '
+        f'freshly initialised {fresh:.4f}')
+    check(committed < fresh, f'the committed model ({committed}) does not beat a fresh one ({fresh})')
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(sde, module, trainset, validset, generator=g, **config)
+    losses = [trainer.train_step(window_batch(trainset, g, TRAIN_BATCH)) for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(window_batch(trainset, g, TRAIN_BATCH)) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).tolist()
+    after = fixed_loss(module)
+    log(f'{WARMUP} + {TRAIN_STEPS} AdamW steps at batch {TRAIN_BATCH}, bf16 compute: {step_ms:.2f} ms per step '
+        f'(after {WARMUP} warm-up steps), peak memory {peak_gib:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; '
+        f'fixed batch {fresh:.4f} -> {after:.4f}')
+    check(all(math.isfinite(v) for v in losses), 'non-finite training loss')
+    check(after < fresh, f'the fixed batch loss did not fall: {fresh} -> {after}')
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [window_batch(trainset, g, TRAIN_BATCH) for _ in range(3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in batches:
+            trainer.train_step(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_busy(prof, wall_us, '3 training steps', top=12)
+
+    stats = trainer.step_epoch()
+    log(f'one epoch through step_epoch: {stats}')
+    check(all(math.isfinite(stats[k]) for k in ('loss_train', 'loss_valid')), f'epoch {stats}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_params(module, Path(tmp) / 'state.msgpack')
+        again = make_score(**config)
+        again.load_state_dict(params_from_flax(load_params(Path(tmp) / 'state.msgpack')))
+        again.to(device)
+    with torch.no_grad():
+        a, b = module(fixed, fixed_t), again(fixed, fixed_t)
+    check(torch.equal(a, b), f'eps after save/load differs by {(a - b).abs().max().item()}')
+    log('save_params then load_params on the card: eps bitwise equal')
+    return step_ms
+
+
+def lorenz_end_to_end(device, chains=1024, length=1024, epochs=64):
+    r"""The published Lorenz data, the local model trained for ``epochs``,
+    the committed checkpoints against their golden entries, and sampled
+    ``log_p`` against the JAX package's. Returns the data's seconds and ms
+    per epoch."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    splits = lorenz_generate.simulate(chains=chains, length=length, burnin=length, seed=0, device=device)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    log(f'simulate: {({k: tuple(v.shape) for k, v in splits.items()})} in {data_s:.2f}s')
+    check(tuple(splits['train'].shape) == (int(0.8 * chains), length, 3), 'Lorenz splits')
+    check(all(bool(torch.isfinite(v).all()) for v in splits.values()), 'non-finite Lorenz data')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log_p = lorenz_train.train('local', 0, epochs=epochs, device=device, path=Path(tmp),
+                                   trainset=splits['train'], validset=splits['valid'])
+        train_s = time.perf_counter() - t0
+        lines = (Path(tmp) / 'runs/local_0/metrics.jsonl').read_text().splitlines()
+    records = [json.loads(line) for line in lines if 'loss_train' in line]
+    epoch_ms = (records[-1]['time'] - records[0]['time']) / (len(records) - 1) * 1e3
+    log(f'local model, {epochs} epochs of {max(len(splits["train"]) // 64, 1)} steps: {epoch_ms:.1f} ms per epoch, '
+        f'{train_s:.1f}s with the final sampling; loss {records[0]["loss_train"]:.4f} -> '
+        f'{records[-1]["loss_train"]:.4f} (valid {records[-1]["loss_valid"]:.4f}); final log_p {log_p:.3f}')
+    check(len(records) == epochs and all(math.isfinite(r['loss_train']) for r in records), 'Lorenz losses')
+    check(records[-1]['loss_train'] < records[0]['loss_train'], 'the Lorenz loss did not fall')
+
+    golden = json.loads(GOLDEN.read_text())
+    runs = sorted(LORENZ_RUNS.iterdir())
+    check(len(runs) == 9, f'expected 9 committed Lorenz runs, found {len(runs)}')
+    for rundir in runs:
+        run, local = rundir.name, rundir.name.startswith('local')
+        module, config = lorenz_utils.load_score(rundir, local=local, device=device)
+        x = lorenz_probe(run, config).to(device)
+        with torch.no_grad():
+            out = module(x, torch.full((2,), 0.5, device=device)).double().cpu().numpy()
+        want = golden[f'experiments/lorenz/storage/runs/{run}']
+        got = {'mean': out.mean(), 'std': out.std(), 'head': out.ravel()[:4]}
+        log(f'  {run}: eps mean {got["mean"]:.6f} (golden {want["mean"]:.6f}), '
+            f'std {got["std"]:.6f} (golden {want["std"]:.6f})')
+        for key in ('mean', 'std', 'head'):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-4, err_msg=f'{run} {key}')
+
+    for run, local, window in (('local_k2_0', True, 5), ('global_0', False, 32)):
+        module, _ = lorenz_utils.load_score(LORENZ_RUNS / run, local=local, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_window = lorenz_train.sample_log_p(module, local, window, torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        got = {'mean': per_window.mean().item(), 'median': per_window.median().item()}
+        for stat, (value, spread) in LOG_P_REFERENCE[run].items():
+            log(f'  {run}: log_p {stat} {got[stat]:.4f}, JAX {value:.4f} +- {LOG_P_SPREADS} x {spread:.4g} '
+                f'({len(per_window)} samples at 64 steps in {sample_s:.2f}s)')
+            check(abs(got[stat] - value) <= LOG_P_SPREADS * spread, f'{run} log_p {stat} {got[stat]}')
+
+    return data_s, epoch_ms
 
 
 def main():
@@ -345,7 +645,7 @@ def main():
 
     with phase('assimilation'):
         torch.cuda.reset_peak_memory_stats()
-        score, config = load_score(PATH / 'runs/unet_0', device=device)
+        score, config = load_score(UNET_0, device=device)
         log(f'unet_0: bf16={config["bf16"]}, hidden {config["hidden_channels"]}, window {config["window"]}')
         eps = make_trajectory_eps(score, config['window'])
         torch.cuda.synchronize()
@@ -387,6 +687,29 @@ def main():
         for n in (1, CHUNK):
             profile_transition(chain, n, device)
 
+    # -- The training path. ---------------------------------------------
+
+    with phase('bf16 against f32'):
+        bf16_against_f32(device)
+
+    with phase('kolmogorov training data'):
+        dft_kernels.reset_launches()
+        trainset, validset, data_s = training_data(chain, device)
+        data_launches = dict(dft_kernels.launches)
+        # As the main path's, less the forcing's transform (the chain exists).
+        data_expected = {'rfft2': expected['rfft2'] - 1, 'irfft2': expected['irfft2']}
+        log(f'kernel launches {data_launches} (expected {data_expected})')
+        check(data_launches == data_expected, f'data launches {data_launches}, expected {data_expected}')
+
+    with phase('unet_0 training step, card against CPU'):
+        step_card_against_cpu(trainset, device)
+
+    with phase('unet_0 training at full width'):
+        step_ms = full_width_training(trainset, validset, device)
+
+    with phase('lorenz'):
+        lorenz_data_s, epoch_ms = lorenz_end_to_end(device)
+
     with phase('kernels summary'):
         source = 'sda_tpu_torch/csrc/dft.cu'
         replaces = {'rfft2': 'sda_tpu/ops/pallas_dft.py:78', 'irfft2': 'sda_tpu/ops/pallas_dft.py:127'}
@@ -399,7 +722,9 @@ def main():
                 'ms': row['ms'], 'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                 'bound_by': row['bound_by'], 'library_ms': row['library_ms'],
             })
-        log(f'wall {time.perf_counter() - T0:.1f}s; truth {truth_s:.1f}s; assimilation {assim_s:.1f}s')
+        log(f'wall {time.perf_counter() - T0:.1f}s; truth {truth_s:.1f}s; assimilation {assim_s:.1f}s; '
+            f'training data {data_s:.1f}s; unet_0 {step_ms:.1f} ms per step; Lorenz data {lorenz_data_s:.1f}s, '
+            f'{epoch_ms:.1f} ms per epoch')
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

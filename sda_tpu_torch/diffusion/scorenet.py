@@ -1,5 +1,5 @@
-r"""Score networks: :class:`ScoreUNet` and the forcing-conditioned
-:class:`LocalScoreUNet`.
+r"""Score networks: the MLP :class:`ScoreNet`, :class:`ScoreUNet` and the
+forcing-conditioned :class:`LocalScoreUNet`.
 
 Counterpart of :mod:`sda_tpu.diffusion.scorenet`, with the same channel-first
 event layout ``(..., C, *spatial)`` at the call boundary. A torch module holds
@@ -16,11 +16,49 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.layers import TimeEmbedding
+from ..nn.layers import ResMLP, TimeEmbedding
 from ..nn.unet import UNet
 from ..utils import broadcast
 
 Tensor = torch.Tensor
+
+
+class ScoreNet(nn.Module):
+    r"""MLP score network: ``eps(x, t, c) = ResMLP(concat(x, t_emb, c))``,
+    with ``t`` and ``c`` broadcast over the leading axes of ``x``.
+
+    Arguments:
+        features: The number of features.
+        context: The number of context features (flax infers it).
+        embedding: The number of time-embedding features.
+        hidden_features: The ResMLP hidden widths.
+        activation: The activation function.
+        dtype: The compute dtype (``None`` = float32).
+    """
+
+    def __init__(
+        self,
+        features: int,
+        context: int = 0,
+        embedding: int = 16,
+        hidden_features: Sequence[int] = (64, 64),
+        activation: Callable[[Tensor], Tensor] = F.relu,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+
+        self.embedding = TimeEmbedding(embedding, dtype)
+        self.mlp = ResMLP(features + embedding + context, features, hidden_features, activation, dtype)
+
+    def forward(self, x: Tensor, t: Union[float, Tensor], c: Optional[Tensor] = None) -> Tensor:
+        t = self.embedding(torch.as_tensor(t, device=x.device))
+
+        if c is None:
+            h = torch.cat(broadcast(x, t, ignore=1), dim=-1)
+        else:
+            h = torch.cat(broadcast(x, t, c, ignore=1), dim=-1)
+
+        return self.mlp(h).to(x.dtype)
 
 
 class ScoreUNet(nn.Module):

@@ -1,19 +1,21 @@
 r"""The variance-preserving SDE and its predictor-corrector sampler.
 
-Counterpart of :mod:`sda_tpu.diffusion.sde` (``make_alpha``, ``VPSDE`` and
-``VPSDE.sample`` with the ``ddim`` predictor and Langevin corrections). The
-JAX package runs the loop as one ``lax.scan``; here it is a Python loop over
-eager torch ops.
+Counterpart of :mod:`sda_tpu.diffusion.sde` (``make_alpha``, ``VPSDE`` with
+``perturb`` and the denoising ``loss``, and ``VPSDE.sample`` with the ``ddim``
+predictor and Langevin corrections). The JAX package runs the loop as one
+``lax.scan``; here it is a Python loop over eager torch ops.
 
-Torch cannot reproduce JAX's noise streams, so :meth:`VPSDE.sample` takes its
-initial state and its per-step, per-correction noise from the caller when
-asked (``init``, ``noise``); by default both come from a ``torch.Generator``.
+Torch cannot reproduce JAX's noise streams, so the random methods take their
+draws from the caller when asked: :meth:`VPSDE.perturb` and
+:meth:`VPSDE.loss` take ``t`` and the noise ``z``, :meth:`VPSDE.sample` its
+initial state and its per-step, per-correction noise (``init``, ``noise``).
+By default all of them come from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -67,6 +69,61 @@ class VPSDE:
 
     def sigma(self, t: Tensor) -> Tensor:
         return torch.sqrt(1 - self.alpha(t) ** 2 + self.eta**2)
+
+    def perturb(
+        self,
+        x: Tensor,
+        t: Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        z: Optional[Tensor] = None,
+    ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+        r"""Samples :math:`x(t) = \mu(t) x + \sigma(t) z` from the
+        perturbation kernel, ``t`` broadcast over the event axes and
+        ``z ~ N(0, 1)`` drawn from ``generator`` unless given; returns
+        ``(x(t), z)`` when ``train``."""
+
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        t = t.reshape(t.shape + (1,) * len(self.shape))
+
+        if z is None:
+            z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        else:
+            z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+        xt = self.mu(t) * x + self.sigma(t) * z
+
+        return (xt, z) if train else xt
+
+    def loss(
+        self,
+        x: Tensor,
+        c: Optional[Tensor] = None,
+        w: Optional[Tensor] = None,
+        eps: Optional[EpsFn] = None,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[Tensor] = None,
+        z: Optional[Tensor] = None,
+    ) -> Tensor:
+        r"""The denoising loss ``mean((eps(x(t), t, c) - z)^2)``, weighted by
+        ``w`` (``mean(err w) / mean(w)``) if given.
+
+        ``t ~ U(0, 1)`` per leading-batch element, then ``z ~ N(0, 1)``, both
+        drawn from ``generator`` in that order unless given (the JAX package
+        splits its key into the same two draws).
+        """
+
+        eps_fn = self.eps if eps is None else eps
+
+        if t is None:
+            t = torch.rand((x.shape[0],), generator=generator, device=x.device, dtype=x.dtype)
+        else:
+            t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        xt, z = self.perturb(x, t, train=True, generator=generator, z=z)
+        err = (eps_fn(xt, t, c) - z).square()
+
+        if w is None:
+            return err.mean()
+        return (err * w).mean() / w.mean()
 
     @torch.no_grad()
     def sample(

@@ -3,6 +3,7 @@ r"""Windowed Markov-blanket score decomposition.
 Counterpart of :mod:`sda_tpu.diffusion.windowed`: a kernel trained on windows
 of ``2k + 1`` states scores trajectories of any length ``L`` by evaluating
 all ``L - 2k`` sliding windows in one batched call and recombining them.
+:class:`MCScoreWrapper` instead runs a spatial network over the time axis.
 """
 
 from __future__ import annotations
@@ -89,3 +90,18 @@ class MCScoreNet:
             s = chunked_eval(self.kernel, x, t, c, self.chunk)
 
         return fold(s, self.order)
+
+
+class MCScoreWrapper:
+    r"""Runs a spatial score network over trajectories by treating time as a
+    spatial axis: ``(B, L, C, *spatial)`` is transposed to
+    ``(B, C, L, *spatial)`` around ``score`` (e.g. the 1-D ``ScoreUNet`` of
+    the Lorenz "global" model)."""
+
+    def __init__(self, score: EpsFn):
+        self.score = score
+
+    def __call__(self, x: Tensor, t: Tensor, c: Optional[Tensor] = None) -> Tensor:
+        y = self.score(x.transpose(1, 2), t, c)
+
+        return y.transpose(1, 2)

@@ -8,6 +8,7 @@ with the port's own msgpack reader; their weights are converted in memory.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Optional, Sequence, Tuple, Union
 
@@ -18,8 +19,12 @@ from ...dynamics import KolmogorovFlow
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
 
-#: The JAX experiment's storage, whose committed runs the port loads.
-PATH = Path(__file__).resolve().parents[3] / 'experiments' / 'kolmogorov' / 'storage'
+#: The JAX experiment's storage, which holds the committed runs, or
+#: ``$SCRATCH/sda_tpu/kolmogorov`` where ``SCRATCH`` is set, as in the JAX pack.
+if 'SCRATCH' in os.environ:
+    PATH = Path(os.environ['SCRATCH']) / 'sda_tpu/kolmogorov'
+else:
+    PATH = Path(__file__).resolve().parents[3] / 'experiments' / 'kolmogorov' / 'storage'
 
 
 def make_chain(size: int = 256, device: Union[str, torch.device] = 'cuda') -> KolmogorovFlow:

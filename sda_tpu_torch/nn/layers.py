@@ -5,6 +5,11 @@ Counterpart of :mod:`sda_tpu.nn.layers`. ``Dense`` and ``Conv`` mirror flax's
 inputs and parameters are cast to it for the product (``bf16: true`` runs
 compute in bfloat16); with ``dtype=None`` the product runs in the promoted
 type of input and parameters.
+
+A fresh ``Dense`` or ``Conv`` starts as flax's does: the kernel from
+``lecun_normal`` (a normal truncated at two standard deviations, scaled to
+variance ``1 / fan_in``) and a zero bias. :func:`reset_parameters` redraws
+every such layer of a module from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,29 @@ def layer_norm(x: Tensor, dim: int = -1, eps: float = 1e-5) -> Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+#: The standard deviation of a unit normal truncated to ``[-2, 2]``.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> Tensor:
+    r"""Fills ``weight`` as flax's ``lecun_normal``: a normal truncated at
+    two standard deviations, with variance ``1 / fan_in`` after truncation."""
+
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    r"""Redraws every :class:`Dense` and :class:`Conv` of ``module``, in
+    module order, from ``generator``; returns ``module``."""
+
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv)):
+            m.reset_parameters(generator)
+    return module
+
+
 def _compute_dtype(x: Tensor, weight: Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
     return torch.promote_types(x.dtype, weight.dtype) if dtype is None else dtype
 
@@ -39,6 +67,10 @@ class Dense(nn.Linear):
     def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: Tensor) -> Tensor:
         dtype = _compute_dtype(x, self.weight, self.compute_dtype)
@@ -73,12 +105,13 @@ class Conv(nn.Module):
         self.padding = padding
         self.compute_dtype = dtype
 
-        fan_in = in_channels * math.prod(self.kernel_size)
-        bound = 1 / math.sqrt(fan_in)
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, *self.kernel_size).uniform_(-bound, bound)
-        )
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
 
     def _pads(self, spatial: Sequence[int]) -> Tuple[int, ...]:
         pads = []

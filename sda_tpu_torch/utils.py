@@ -1,15 +1,16 @@
 r"""Shared helpers: broadcasting, configs, activation registry, devices.
 
-Counterpart of :mod:`sda_tpu.utils` (``broadcast``, ``load_config``,
-``ACTIVATIONS``), plus :func:`resolve_device`, which every entry point of the
+Counterpart of :mod:`sda_tpu.utils` (``broadcast``, ``random_config``,
+``save_config``, ``load_config``, ``ACTIVATIONS``), plus :func:`resolve_device`, which every entry point of the
 port uses to refuse a silent fall back to the CPU.
 """
 
 from __future__ import annotations
 
 import json
+import random
 from pathlib import Path
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +56,26 @@ def broadcast(*tensors: Tensor, ignore: int = 0) -> tuple:
     return tuple(
         t.expand(common + tuple(tail)) for t, tail in zip(tensors, tails)
     )
+
+
+def random_config(configs: Dict[str, Sequence[Any]], seed: int = None) -> Dict[str, Any]:
+    r"""Uniformly samples one value per key with ``random.Random(seed)``, as
+    ``sda_tpu.utils.random_config``."""
+
+    gen = random.Random(seed)
+
+    return {key: gen.choice(list(values)) for key, values in configs.items()}
+
+
+def save_config(config: Dict[str, Any], path: Path) -> None:
+    r"""Writes ``config.json`` into the run directory ``path`` (mode ``'x'``:
+    fails if it already exists)."""
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+
+    with open(path / 'config.json', mode='x') as f:
+        json.dump(config, f)
 
 
 def load_config(path: Path) -> Dict[str, Any]:

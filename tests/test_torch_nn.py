@@ -179,6 +179,42 @@ def test_unet_0_matches_jax_and_golden():
     np.testing.assert_allclose(got.mean(), golden['mean'], atol=2e-3)
 
 
+def test_unet_0_bf16_matches_jax_bf16():
+    r"""The committed ``unet_0`` with its config's bf16 compute, through the
+    port's ``load_score``, against the JAX package's bf16 on the golden
+    probe (``x ~ N(0, 1)`` from key 0, ``(1, 10, 64, 64)``, ``t = 0.5``).
+
+    Each side rounds to bf16 (2^-8 relative) after every one of 26
+    convolutions, in its own order: the JAX package's bf16 alone is rms
+    0.0071 from its float32, and the port was rms 0.0080, max 0.031 from
+    JAX bf16 when the bound was set. The bound is about twice that: rms
+    0.015, max 0.08.
+    """
+
+    from sda_tpu.train import load_params as jload_params
+
+    config = json.loads((REPO / UNET_0 / 'config.json').read_text())
+    assert config['bf16'] is True
+    module = JLocalScoreUNet(
+        channels=10, size=64, embedding=64, hidden_channels=tuple(config['hidden_channels']),
+        hidden_blocks=tuple(config['hidden_blocks']), activation=jax.nn.silu, dtype=jnp.bfloat16,
+    )
+    x = jax.random.normal(jax.random.key(0), (1, 10, 64, 64), dtype=jnp.float32)
+    tt = 0.5 * jnp.ones((1,), dtype=jnp.float32)
+    template = jax.eval_shape(module.init, jax.random.key(0), x, tt)['params']
+    params = jload_params(template, REPO / UNET_0 / 'state.msgpack')
+    want = np.asarray(jax.jit(module.apply)({'params': params}, x, tt))
+
+    score, loaded = load_score(REPO / UNET_0, device='cpu')
+    assert loaded['bf16'] is True and score.score.unet.convs[0].compute_dtype == torch.bfloat16
+    with torch.no_grad():
+        got = score(t(x), t(tt)).numpy()
+
+    diff = got.astype(np.float64) - want
+    assert np.sqrt(np.mean(diff**2)) <= 0.015, np.sqrt(np.mean(diff**2))
+    assert np.abs(diff).max() <= 0.08, np.abs(diff).max()
+
+
 @pytest.mark.parametrize('order', [1, 2])
 def test_unfold_fold(order):
     x = randn(6, 2, 9, 3, 4, 4)
