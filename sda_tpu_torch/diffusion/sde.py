@@ -1,15 +1,17 @@
 r"""The variance-preserving SDE and its predictor-corrector sampler.
 
 Counterpart of :mod:`sda_tpu.diffusion.sde` (``make_alpha``, ``VPSDE`` with
-``perturb`` and the denoising ``loss``, and ``VPSDE.sample`` with the ``ddim``
-predictor and Langevin corrections). The JAX package runs the loop as one
+``perturb`` and the denoising ``loss``, ``VPSDE.sample`` with the ``ddim`` and
+``dpm2m`` predictors, Langevin corrections and segmented grids, and
+``SubVPSDE``/``SubSubVPSDE``). The JAX package runs the loop as one
 ``lax.scan``; here it is a Python loop over eager torch ops.
 
 Torch cannot reproduce JAX's noise streams, so the random methods take their
 draws from the caller when asked: :meth:`VPSDE.perturb` and
 :meth:`VPSDE.loss` take ``t`` and the noise ``z``, :meth:`VPSDE.sample` its
 initial state and its per-step, per-correction noise (``init``, ``noise``).
-By default all of them come from a ``torch.Generator``.
+By default all of them come from a ``torch.Generator`` (the sampler's noise
+from generators seeded per step, see :meth:`VPSDE.sample`).
 """
 
 from __future__ import annotations
@@ -137,33 +139,62 @@ class VPSDE:
         generator: Optional[torch.Generator] = None,
         init: Optional[Tensor] = None,
         noise: Optional[Callable[[int, int], Tensor]] = None,
+        solver: str = 'ddim',
+        segment: Optional[Tuple[int, int]] = None,
     ) -> Tensor:
         r"""Samples from :math:`p(x(0))` over a uniform time grid ``1 -> 0``.
 
-        - predictor: ``x <- r x + (sigma(t - dt) - r sigma(t)) eps(x, t, c)``
-          with ``r = mu(t - dt) / mu(t)``;
+        - predictor: ``x <- r x + (sigma(t - dt) - r sigma(t)) e`` with
+          ``r = mu(t - dt) / mu(t)`` and ``e = eps(x, t, c)``;
         - ``corrections`` Langevin steps at ``t - dt``:
           ``x <- x - (delta eps + sqrt(2 delta) z) sigma(t - dt)`` with
           ``delta = tau / mean(eps^2)`` over the event axes.
 
+        ``solver='dpm2m'`` replaces ``e`` by the second-order multistep
+        extrapolation ``(1 + w) e_i - w e_{i-1}``, ``w = h_i / 2 h_{i-1}``
+        in the log-SNR steps ``h`` of :math:`\lambda = \log(\mu/\sigma)`
+        (``w = 0`` on the first step, whose ``h_{i-1}`` is infinite). It
+        applies only when ``corrections == 0``; with corrections the
+        predictor stays first order (ddim), as in the JAX package.
+
+        Randomness: the initial state is drawn from ``generator``. The noise
+        of correction ``j`` at step ``i`` comes from a generator of its own,
+        seeded from ``generator.initial_seed()`` (or, without a generator,
+        from one draw of torch's default generator), ``i`` and ``j``, so it
+        depends on the global step index and not on where a segment starts:
+        running consecutive ``segment`` slices, each with the previous
+        output as ``init``, gives the same result as one run.
+
         Arguments:
             shape: The batch shape.
             c: The optional context.
-            steps: The number of time steps.
+            steps: The number of time steps of the global grid.
             corrections: The number of Langevin corrections per step.
             tau: The amplitude of Langevin steps.
             eps: Optional override of the bound noise estimator.
-            generator: The source of the initial state and of the noise;
-                the sampler runs on its device.
+            generator: The source of the initial state and of the noise's
+                seeds; the sampler runs on its device.
             init: Optional initial state ``shape + self.shape`` in place of
                 :math:`x(1) \sim N(0, 1)`; the sampler runs on its device.
+                Required when ``segment`` starts past 0.
             noise: Optional ``noise(i, j)`` giving the noise ``z`` of
-                correction ``j`` at step ``i``, of shape
+                correction ``j`` at global step ``i``, of shape
                 ``(prod(shape),) + self.shape``.
+            solver: ``'ddim'`` or ``'dpm2m'``.
+            segment: Optional ``(i0, i1)`` slice of the ``steps``-point grid
+                to integrate. With ``'dpm2m'`` the multistep history restarts
+                at each segment (its first step is first order).
         """
+
+        if solver not in ('ddim', 'dpm2m'):
+            raise ValueError(f"unknown solver '{solver}'")
 
         eps_fn = self.eps if eps is None else eps
         shape = tuple(shape)
+
+        i0, i1 = (0, steps) if segment is None else segment
+        if i0 > 0 and init is None:
+            raise ValueError(f"segment {segment} starts mid-grid: pass the previous segment's output as init")
 
         if init is None:
             device = generator.device if generator is not None else None
@@ -173,19 +204,39 @@ class VPSDE:
         x = x.reshape((-1,) + self.shape)
 
         if noise is None:
+            if generator is not None:
+                base = generator.initial_seed()
+            else:
+                base = int(torch.randint(2**62, (), dtype=torch.int64))
+
             def noise(i, j):
-                return torch.randn(x.shape, generator=generator, device=x.device)
+                seed = (base + 0x9E3779B97F4A7C15 * (i * 65536 + j + 1)) % 2**63
+                g = torch.Generator(device=x.device).manual_seed(seed)
+                return torch.randn(x.shape, generator=g, device=x.device)
 
         dt = 1.0 / steps
         time = torch.linspace(1.0, 0.0, steps + 1, device=x.device)[:-1]
 
-        for i in range(steps):
+        def lam(t):
+            return torch.log(self.mu(t) / self.sigma(t))
+
+        second_order = solver == 'dpm2m' and corrections == 0
+        e_prev = h_prev = None
+
+        for i in range(i0, i1):
             t = time[i]
 
-            e = eps_fn(x, t, c)
+            e = e_hat = eps_fn(x, t, c)
+
+            if second_order:
+                h = lam(t - dt) - lam(t)
+                if e_prev is not None:
+                    w = h / (2 * h_prev)
+                    e_hat = (1 + w) * e - w * e_prev
+                e_prev, h_prev = e, h
 
             r = self.mu(t - dt) / self.mu(t)
-            x = r * x + (self.sigma(t - dt) - r * self.sigma(t)) * e
+            x = r * x + (self.sigma(t - dt) - r * self.sigma(t)) * e_hat
 
             for j in range(corrections):
                 z = noise(i, j)
@@ -195,3 +246,17 @@ class VPSDE:
                 x = x - (delta * e + torch.sqrt(2 * delta) * z) * self.sigma(t - dt)
 
         return x.reshape(shape + self.shape)
+
+
+class SubVPSDE(VPSDE):
+    r"""Sub-variance-preserving SDE, :math:`\sigma(t) = 1 - \alpha(t)^2 + \eta`."""
+
+    def sigma(self, t: Tensor) -> Tensor:
+        return 1 - self.alpha(t) ** 2 + self.eta
+
+
+class SubSubVPSDE(VPSDE):
+    r"""Sub-sub-VP SDE, :math:`\sigma(t) = 1 - \alpha(t) + \eta`."""
+
+    def sigma(self, t: Tensor) -> Tensor:
+        return 1 - self.alpha(t) + self.eta

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 EpsFn = Callable[..., Tensor]
@@ -45,11 +46,15 @@ def chunked_eval(
     t: Tensor,
     c: Optional[Tensor],
     chunk: int,
+    remat: bool = False,
 ) -> Tensor:
     r"""Evaluates ``kernel`` over the window axis of an unfolded batch
     ``(B, n_windows, ...)`` in sequential chunks of ``chunk`` windows. The
     window axis is padded with copies of the last window up to a multiple of
-    ``chunk``, and the pad windows' outputs are dropped."""
+    ``chunk``, and the pad windows' outputs are dropped. With ``remat`` each
+    chunk's evaluation is checkpointed (``torch.utils.checkpoint``), so a
+    backward pass through this path keeps one chunk's activations at a time
+    and recomputes them, instead of keeping every chunk's."""
 
     batch, n_windows = x.shape[:2]
     chunk = min(chunk, n_windows)
@@ -58,12 +63,18 @@ def chunked_eval(
     if pad:
         x = torch.cat((x, x[:, -1:].expand((batch, pad) + x.shape[2:])), dim=1)
 
-    s = torch.cat(
-        [kernel(x[:, i:i + chunk], t, c) for i in range(0, x.shape[1], chunk)],
-        dim=1,
-    )
+    def fn(xc):
+        return kernel(xc, t, c)
 
-    return s[:, :n_windows]
+    outputs = []
+    for i in range(0, x.shape[1], chunk):
+        xc = x[:, i:i + chunk]
+        if remat and torch.is_grad_enabled():
+            outputs.append(checkpoint(fn, xc, use_reentrant=False))
+        else:
+            outputs.append(fn(xc))
+
+    return torch.cat(outputs, dim=1)[:, :n_windows]
 
 
 class MCScoreNet:
@@ -74,12 +85,16 @@ class MCScoreNet:
         kernel: The window eps function.
         order: The Markov order ``k`` (window size ``2k + 1``).
         chunk: Optional window-chunk size for sequential evaluation.
+        remat: Checkpoint each chunk's evaluation (see :func:`chunked_eval`),
+            so that a gradient through the chunked score (guided sampling)
+            keeps activation memory O(chunk).
     """
 
-    def __init__(self, kernel: EpsFn, order: int, chunk: Optional[int] = None):
+    def __init__(self, kernel: EpsFn, order: int, chunk: Optional[int] = None, remat: bool = False):
         self.kernel = kernel
         self.order = order
         self.chunk = chunk
+        self.remat = remat
 
     def __call__(self, x: Tensor, t: Tensor, c: Optional[Tensor] = None) -> Tensor:
         x = unfold(x, self.order)
@@ -87,7 +102,7 @@ class MCScoreNet:
         if self.chunk is None:
             s = self.kernel(x, t, c)
         else:
-            s = chunked_eval(self.kernel, x, t, c, self.chunk)
+            s = chunked_eval(self.kernel, x, t, c, self.chunk, self.remat)
 
         return fold(s, self.order)
 

@@ -140,6 +140,11 @@ class KolmogorovFlow(MarkovChain):
 
         return self.dft.irfft2(re, im) + mean[..., None, None]
 
+    def vorticity_field(self, w: Spectral) -> Tensor:
+        r"""Physical-space vorticity from its spectrum pair."""
+
+        return self.dft.irfft2(*w)
+
     # -- Dynamics ----------------------------------------------------------
 
     def _nonlinear(self, w: Spectral) -> Spectral:
@@ -265,4 +270,5 @@ class KolmogorovFlow(MarkovChain):
         return uv * (max_velocity / peak)
 
     coarsen = staticmethod(ops.coarsen)
+    upsample = staticmethod(ops.upsample)
     vorticity = staticmethod(ops.vorticity)

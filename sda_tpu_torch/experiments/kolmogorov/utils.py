@@ -75,7 +75,11 @@ def load_score(
     return bind_eps(module, params).to(device), config
 
 
-def make_trajectory_eps(module, window: int = 5, chunk: Optional[int] = None) -> MCScoreNet:
-    r"""Composes the window kernel into a full-trajectory eps function."""
+def make_trajectory_eps(
+    module, window: int = 5, chunk: Optional[int] = None, remat: bool = False,
+) -> MCScoreNet:
+    r"""Composes the window kernel into a full-trajectory eps function,
+    evaluated in chunks of ``chunk`` windows (each checkpointed if
+    ``remat``) when given."""
 
-    return MCScoreNet(module, order=window // 2, chunk=chunk)
+    return MCScoreNet(module, order=window // 2, chunk=chunk, remat=remat)

@@ -2,10 +2,10 @@ r"""Lorenz experiment factories and likelihoods.
 
 Counterpart of ``experiments/lorenz/utils.py`` (``make_chain``,
 ``make_global_score``, ``make_local_score``, ``load_score``,
-``make_trajectory_eps``, ``log_prior``, ``log_likelihood``). The committed
-runs under ``experiments/lorenz/storage/runs`` are read with the port's own
-msgpack reader. ``posterior`` (the particle filter) and ``weak_4d_var`` wait
-for the port of ``sda_tpu/eval``.
+``make_trajectory_eps``, ``log_prior``, ``log_likelihood``, ``posterior``
+and ``weak_4d_var``). The committed runs under
+``experiments/lorenz/storage/runs`` are read with the port's own msgpack
+reader.
 """
 
 from __future__ import annotations
@@ -13,13 +13,15 @@ from __future__ import annotations
 import os
 import math
 from pathlib import Path
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ...diffusion import MCScoreNet, MCScoreWrapper, ScoreNet, ScoreUNet, bind_eps
 from ...dynamics import NoisyLorenz63
+from ...eval import bpf
+from ...eval import weak_4d_var as _weak_4d_var
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
 
@@ -126,3 +128,52 @@ def log_likelihood(
     log_p = -((A(x) - y) ** 2 / sigma**2 + math.log(2 * math.pi * sigma**2)) / 2
 
     return log_p.sum(dim=(-1, -2))
+
+
+def posterior(
+    y: Tensor,
+    A: Callable[[Tensor], Tensor] = lambda x: x,
+    sigma: float = 1.0,
+    step: int = 1,
+    particles: int = 16384,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device] = 'cuda',
+) -> Tensor:
+    r"""The ground-truth posterior of a trajectory given ``y``, by bootstrap
+    particle filter: ``particles`` draws of the prior, 64 transitions of
+    burn-in, the filter over the observations, then the first ``step``
+    frames dropped to align the histories with ``y``'s time grid. Draws
+    come from ``generator`` (on ``device``)."""
+
+    chain = make_chain(device=device)
+    y = torch.as_tensor(y, dtype=torch.float32, device=chain.device)
+
+    x = chain.prior((particles,), generator=generator)
+    x = chain.trajectory(x, length=64, last=True, generator=generator)
+
+    def log_w(yi, xi):
+        return (-((A(xi) - yi) ** 2 / sigma**2 + math.log(2 * math.pi * sigma**2)) / 2).sum(dim=-1)
+
+    hist = bpf(x, y, chain.transition, log_w, step, generator=generator)
+
+    return hist[:, step:]
+
+
+def weak_4d_var(
+    x: Tensor,
+    y: Tensor,
+    A: Callable[[Tensor], Tensor] = lambda x: x,
+    sigma: float = 1.0,
+    step: int = 1,
+    iterations: int = 320,
+) -> Tensor:
+    r"""The weak-constraint 4D-Var baseline: L-BFGS on the objective of
+    :func:`~sda_tpu_torch.eval.weak_4d_var` with the exact dynamics prior
+    and the Gaussian observation likelihood (320 updates, as the JAX
+    package)."""
+
+    return _weak_4d_var(
+        x, y, log_prior=log_prior,
+        log_likelihood=lambda y, x: log_likelihood(y, x, A, sigma, step),
+        iterations=iterations,
+    )

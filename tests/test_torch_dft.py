@@ -304,7 +304,7 @@ def emulate_irfft2(re, im, dw, plan, cluster):
 
 @pytest.mark.parametrize('h, w, hm, wm, cluster', [
     (256, 256, 86, 86, 8), (256, 256, 86, 86, 16), (45, 80, 12, 22, 8), (45, 80, 12, 22, 2),
-    (32, 32, 11, 11, 8), (37, 50, 13, 17, 4),
+    (32, 32, 11, 11, 8), (37, 50, 13, 17, 4), (64, 64, None, None, 16), (64, 64, None, None, 2),
 ])
 def test_factorised_tables_match_plain(h, w, hm, wm, cluster):
     r"""The kernels' algorithm with the Plan's tables against the plain

@@ -41,10 +41,12 @@ def randn(seed, *shape, device):
 # (one field, 4, generate.py's chunk of 16, and 64) and 64^2, the Pallas
 # tests' 32^2, a rectangle whose odd height leaves the last bands partial
 # (radices 3, 3, 5 and 4, 4, 5), and a prime height (one direct 37-point DFT)
-# with a width of rows that are not 16-byte multiples (no bulk copy).
+# with a width of rows that are not 16-byte multiples (no bulk copy); and the
+# energy spectra's 64^2 with every mode kept, at one field and at the
+# Kolmogorov evaluation's largest batch.
 SHAPES = [(1, 256, 256, 86, 86), (4, 256, 256, 86, 86), (16, 256, 256, 86, 86),
           (64, 256, 256, 86, 86), (4, 64, 64, 22, 22), (3, 32, 32, 11, 11),
-          (2, 45, 80, 12, 22), (3, 37, 50, 13, 17)]
+          (2, 45, 80, 12, 22), (3, 37, 50, 13, 17), (1, 64, 64, None, None), (576, 64, 64, None, None)]
 
 
 @pytest.mark.parametrize('n, h, w, hm, wm', SHAPES)
