@@ -1,6 +1,6 @@
 r"""Real-valued 2-D DFT with mode truncation, on ``(re, im)`` pairs.
 
-Counterpart of :class:`sda_tpu.ops.spectral.RealDFT2`. Two methods:
+Counterpart of :class:`sda_tpu.ops.spectral.RealDFT2`. Three methods:
 
 - ``'matmul'``: basis contractions in plain torch (the plain version). The
   JAX package runs them at ``Precision.HIGHEST``; on a card that is true
@@ -8,9 +8,12 @@ Counterpart of :class:`sda_tpu.ops.spectral.RealDFT2`. Two methods:
   (PyTorch's default) for this path.
 - ``'kernel'``: the CUDA kernel pair of :mod:`.dft_kernels` (its plain
   version on a CPU tensor).
+- ``'fft'``: ``torch.fft.rfft2``/``irfft2``, the counterpart of the JAX
+  package's XLA FFT method. Like it, it takes only the untruncated layout: a
+  truncated ``'fft'`` falls back to ``'matmul'``.
 
 ``'auto'`` resolves to ``'kernel'`` on a CUDA device and to ``'matmul'``
-elsewhere, so the solver's transforms go through the kernels on the card.
+elsewhere, so the solvers' transforms go through the kernels on the card.
 Basis convention: ``numpy.fft.rfft2`` (forward :math:`e^{-2\pi i k n / N}`
 unnormalised, inverse scaled by :math:`1/N` per axis).
 """
@@ -33,7 +36,7 @@ class RealDFT2:
 
     Arguments:
         height, width: The grid size.
-        method: ``'matmul'``, ``'kernel'`` or ``'auto'``.
+        method: ``'matmul'``, ``'kernel'``, ``'fft'`` or ``'auto'``.
         h_modes: Retained non-negative frequencies along axis -2 (``None`` =
             all): rows ``0..h_modes-1`` then ``-(h_modes-1)..-1``.
         w_modes: Retained frequencies along the last axis (``None`` = the
@@ -53,8 +56,10 @@ class RealDFT2:
         device = resolve_device(device)
         if method == 'auto':
             method = 'kernel' if device.type == 'cuda' else 'matmul'
-        if method not in ('matmul', 'kernel'):
+        if method not in ('matmul', 'kernel', 'fft'):
             raise ValueError(f"unknown DFT method '{method}'")
+        if method == 'fft' and not (h_modes is None and w_modes is None):
+            method = 'matmul'  # torch.fft keeps every mode
 
         self.height = height
         self.width = width
@@ -104,6 +109,9 @@ class RealDFT2:
 
         if self.method == 'matmul':
             return dft_kernels.rfft2_plain(x, *self._bases())
+        if self.method == 'fft':
+            out = torch.fft.rfft2(x)
+            return out.real, out.imag
 
         batch = x.shape[:-2]
         x = x.reshape((-1,) + x.shape[-2:]).float().contiguous()
@@ -117,6 +125,8 @@ class RealDFT2:
 
         if self.method == 'matmul':
             return dft_kernels.irfft2_plain(re, im, *self._bases(), self.weight_w)
+        if self.method == 'fft':
+            return torch.fft.irfft2(torch.complex(re, im), s=(self.height, self.width))
 
         batch = re.shape[:-2]
         re = re.reshape((-1,) + re.shape[-2:]).float().contiguous()

@@ -2,7 +2,7 @@ r"""Shared helpers: broadcasting, configs, activation registry, devices.
 
 Counterpart of :mod:`sda_tpu.utils` (``broadcast``, ``random_config``,
 ``save_config``, ``load_config``, ``ACTIVATIONS``), plus :func:`resolve_device`, which every entry point of the
-port uses to refuse a silent fall back to the CPU.
+port uses to refuse a silent fall back to the CPU, and :func:`chunk_generator`.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import random
 from pathlib import Path
 from typing import Any, Callable, Dict, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +39,15 @@ def resolve_device(device: Union[str, torch.device] = 'cuda') -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def chunk_generator(seed: int, index: int, device: Union[str, torch.device]) -> torch.Generator:
+    r"""The generator of chunk ``index`` of a simulation seeded ``seed``: its
+    stream depends on the two only, as the JAX packs split one key per
+    chunk, so a chunk's trajectories do not depend on the chunks before."""
+
+    state = np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) % 2**63)
 
 
 def broadcast(*tensors: Tensor, ignore: int = 0) -> tuple:

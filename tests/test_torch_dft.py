@@ -163,7 +163,8 @@ def test_auto_method_and_cpu_dispatch():
     dft = RealDFT2(16, 16, h_modes=6, w_modes=6, device='cpu')
     assert dft.method == 'matmul'
     with pytest.raises(ValueError):
-        RealDFT2(16, 16, method='fft', device='cpu')
+        RealDFT2(16, 16, method='pallas', device='cpu')
+    assert RealDFT2(16, 16, method='fft', device='cpu').method == 'fft'
 
     # On a CPU tensor the wrappers run the plain versions and launch nothing.
     dft_kernels.reset_launches()
@@ -305,6 +306,7 @@ def emulate_irfft2(re, im, dw, plan, cluster):
 @pytest.mark.parametrize('h, w, hm, wm, cluster', [
     (256, 256, 86, 86, 8), (256, 256, 86, 86, 16), (45, 80, 12, 22, 8), (45, 80, 12, 22, 2),
     (32, 32, 11, 11, 8), (37, 50, 13, 17, 4), (64, 64, None, None, 16), (64, 64, None, None, 2),
+    (128, 128, 43, 43, 16), (128, 128, 43, 43, 4), (128, 128, 43, 43, 2),
 ])
 def test_factorised_tables_match_plain(h, w, hm, wm, cluster):
     r"""The kernels' algorithm with the Plan's tables against the plain
@@ -325,7 +327,7 @@ def test_factorised_tables_match_plain(h, w, hm, wm, cluster):
     np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize('n', [256, 80, 45, 37, 50, 32, 1])
+@pytest.mark.parametrize('n', [256, 128, 80, 45, 37, 50, 32, 1])
 def test_axis_plan_is_an_fft(n):
     r"""One axis's plan and table, applied as the kernel applies them, is the
     DFT (float32 tables, float32 sums over ``n`` terms of size ~1)."""

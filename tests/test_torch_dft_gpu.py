@@ -43,10 +43,13 @@ def randn(seed, *shape, device):
 # (radices 3, 3, 5 and 4, 4, 5), and a prime height (one direct 37-point DFT)
 # with a width of rows that are not 16-byte multiples (no bulk copy); and the
 # energy spectra's 64^2 with every mode kept, at one field and at the
-# Kolmogorov evaluation's largest batch.
+# Kolmogorov evaluation's largest batch; and the QG solver's 128^2 with 43
+# modes at one trajectory's 2 layers, a forward call of generate.py's chunk
+# (128) and the tendency's inverse call (512).
 SHAPES = [(1, 256, 256, 86, 86), (4, 256, 256, 86, 86), (16, 256, 256, 86, 86),
           (64, 256, 256, 86, 86), (4, 64, 64, 22, 22), (3, 32, 32, 11, 11),
-          (2, 45, 80, 12, 22), (3, 37, 50, 13, 17), (1, 64, 64, None, None), (576, 64, 64, None, None)]
+          (2, 45, 80, 12, 22), (3, 37, 50, 13, 17), (1, 64, 64, None, None), (576, 64, 64, None, None),
+          (2, 128, 128, 43, 43), (128, 128, 128, 43, 43), (512, 128, 128, 43, 43)]
 
 
 @pytest.mark.parametrize('n, h, w, hm, wm', SHAPES)
@@ -71,6 +74,7 @@ def test_kernels_match_plain(cuda, n, h, w, hm, wm):
 
 @pytest.mark.parametrize('n, h, w, hm, wm', [
     (2, 256, 256, 86, 86), (2, 45, 80, 12, 22), (2, 37, 50, 13, 17), (1, 256, 256, None, None),
+    (2, 128, 128, 43, 43),
 ])
 def test_every_cluster_matches_plain(cuda, n, h, w, hm, wm):
     r"""Every cluster size the launchers take, including the partial bands

@@ -265,10 +265,15 @@ def test_port_imports_no_jax():
 
     modules = [
         'sda_tpu_torch.' + m for m in (
-            'utils', 'prng', 'nn', 'diffusion', 'dynamics', 'ops', 'train',
+            'utils', 'prng', 'nn', 'diffusion', 'dynamics', 'dynamics.quasigeostrophic', 'ops', 'ops.spectral',
+            'train', 'eval',
             'experiments.kolmogorov.utils', 'experiments.kolmogorov.generate',
-            'experiments.kolmogorov.assimilate', 'experiments.kolmogorov.train',
+            'experiments.kolmogorov.assimilate', 'experiments.kolmogorov.train', 'experiments.kolmogorov.eval',
+            'experiments.kolmogorov.validate_solver',
             'experiments.lorenz.utils', 'experiments.lorenz.generate', 'experiments.lorenz.train',
+            'experiments.lorenz.eval', 'experiments.lorenz.multimodal',
+            'experiments.qg.utils', 'experiments.qg.generate', 'experiments.qg.train',
+            'experiments.qg.assimilate', 'experiments.qg.eval',
         )
     ]
     code = (
