@@ -24,9 +24,9 @@ their golden entries, and sampled ``log_p`` of ``local_k2_0`` and
 
 Then the evaluation path, held against the JAX package's committed result
 files: both kernels at the spectra's shape (64^2, every mode kept) at the
-batches the evaluation gives them; ``unet_0`` on two other Kolmogorov
-scenarios at the published 4 samples x 256 steps x 1 correction (SDA's
-residual ratios against ``method_sweep.csv``), DPS against SDA and
+batches the evaluation gives them; ``unet_0`` on ``subsample_s8`` at the
+published 4 samples x 256 steps x 1 correction (SDA's residual ratio
+against ``method_sweep.csv``), DPS against SDA and
 ``circle`` with its re-simulation at 256^2; per-chunk remat and segmented
 sampling on full-width trajectories; ``experiments/kolmogorov/eval.py``'s metrics
 against ``eval.csv``; the Lorenz ground truth (particle filter, 16,384
@@ -45,6 +45,14 @@ scenario with ``qg_0`` and ``experiments/qg/eval.py``'s generative and
 posterior rows against ``eval.csv``; and the Kolmogorov solver's physics
 gate (``validate_solver``) at 256^2.
 
+Last, scale-out (``sda_tpu_torch.parallel``): two ranks on the one card
+over gloo (NCCL refuses two ranks on one device), ``unet_0`` in float32 at
+its published widths, the sequence-parallel guided sample (``loop``, 64
+frames, ``sp=2``) and 4 data-parallel AdamW steps (batch 32, 16 per rank),
+each against the same work in one process and bitwise equal across the
+ranks; then NCCL at world 1: the Kolmogorov training command's ``--mesh``
+path for 2 steps, ``sp=1`` assimilation and a sharded guided eps.
+
     python3 chip_smoke.py
 
 Phases print flushed, timestamped start and end lines. Any failure exits
@@ -54,16 +62,19 @@ kernels' JSON summary and the last line is
 The script writes nothing but the kernels' build directory in the checkout.
 """
 
+import argparse
 import contextlib
 import json
 import math
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sda_tpu_torch import prng
 from sda_tpu_torch.diffusion import VPSDE, GaussianScore, MCScoreNet
@@ -71,6 +82,7 @@ from sda_tpu_torch.dynamics import KolmogorovFlow, QuasiGeostrophic
 from sda_tpu_torch.experiments.kolmogorov import eval as kolmogorov_eval
 from sda_tpu_torch.experiments.kolmogorov import validate_solver
 from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, get_scenario, resimulate, scenario_label
+from sda_tpu_torch.experiments.kolmogorov import train as kolmogorov_train
 from sda_tpu_torch.experiments.kolmogorov.generate import simulate
 from sda_tpu_torch.experiments.kolmogorov.train import CONFIG as KOLMOGOROV_CONFIG
 from sda_tpu_torch.experiments.kolmogorov.utils import load_score, make_chain, make_score, make_trajectory_eps
@@ -86,6 +98,8 @@ from sda_tpu_torch.experiments.qg import utils as qg_utils
 from sda_tpu_torch.experiments.qg.train import CONFIG as QG_CONFIG
 from sda_tpu_torch.nn import reset_parameters
 from sda_tpu_torch.ops import RealDFT2, dft_kernels
+from sda_tpu_torch.parallel import ShardedMCScoreNet, init_multihost, make_mesh
+from sda_tpu_torch.parallel.demo import equal_on_all_ranks, free_port, run_ranks
 from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
@@ -147,14 +161,14 @@ LORENZ_INPUTS = REPO / 'tests/golden/lorenz_eval_inputs.npz'
 # settings the ratio spans 1.110-1.139. Two of method_sweep.csv's six
 # non-coarse rows run here: each takes 22-40 s on an H100 80GB HBM3 (launch
 # bound, depending on the host), and the QG path's float32 sampling takes
-# ~300 s. subsample_s8 (which DPS is held against) and saturation (the
-# nonlinear operator) run; subsample_7s16, patch, extrapolate and vorticity
-# are left to the CPU tests (all six have passed on the card at these
-# settings).
+# ~300 s. subsample_s8 (which DPS is held against) runs; saturation, which
+# ran until the scale-out phases needed its ~27 s, subsample_7s16, patch,
+# extrapolate and vorticity are left to the CPU tests (all six have passed on
+# the card at these settings).
 # circle's check is finiteness and its re-simulation, so it samples
 # CIRCLE_STEPS steps, not 256; DPS samples DPS_STEPS (it misfits the
 # observations at any step count: 11x SDA's ratio at 256 steps).
-SCENARIOS = (('subsample', {'stride': 8}), ('saturation', {}))
+SCENARIOS = (('subsample', {'stride': 8}),)
 SCENARIO_RTOL, DPS_FACTOR = 0.2, 3.0
 CIRCLE_STEPS, DPS_STEPS = 64, 128
 SEGMENTED_STEPS, SEGMENTS = 16, 4
@@ -178,13 +192,13 @@ BPF_SPREAD = {
     'hi': {'log_px': 1.1374893188476562, 'log_py': 0.585412509739399, 'w1': 0.5966310501098633},
 }
 GT_SPREADS = 10
-# Guided rows at 1,024 samples x 256 steps, corrections (0, 1, 2) of the
+# Guided rows at 1,024 samples x 256 steps, corrections (0, 1) of the
 # published (0, 1, 2, 4, 8, 16): C = 8 took three quarters of the phase's
-# time, which the QG path needs. The CPU cannot run them at this size, so
+# time, which the QG path needs, and C = 2 half of what was left, which the
+# scale-out phases need. The CPU cannot run them at this size, so
 # their bounds come from the committed rows (stats_lo.csv: local_k2_0's W1
-# 89.9 -> 43.5 -> 34.2, global_0's 4.93 at C = 2), not from a measured
-# spread.
-LORENZ_CORRECTIONS, GLOBAL_W1_RTOL = (0, 1, 2), 0.25
+# 89.9 -> 43.5, global_0's 5.03 at C = 1), not from a measured spread.
+LORENZ_CORRECTIONS, GLOBAL_W1_RTOL = (0, 1), 0.25
 MULTIMODAL_RESIDUAL = 0.2  # twice the observation noise 0.1
 # Weak 4D-Var from 4 of the published 32 sampled starts: each start takes
 # ~1.4 s of host-bound L-BFGS updates on the H100's machine.
@@ -216,6 +230,10 @@ QG_SCALE_SPREADS, QG_SCALE_RTOL = 5, 0.1
 
 # qg_0's architecture from flax's initialisation: AdamW steps at batch 32.
 QG_TRAIN_BATCH, QG_TRAIN_STEPS = 32, 20
+# upper at 2 of the published 4 samples (x 256 steps x 1 correction): its
+# float32 sampling is device bound, and the scale-out phases need the ~55 s;
+# eval.py's row of the same trajectory samples the published 8.
+QG_SAMPLES = 2
 
 # The upper scenario and eval.py's rows against eval.csv's qg_0 rows (upper,
 # indices 0-7: residual ratio 1.127-1.541, bottom RMSE 0.28-0.77,
@@ -230,6 +248,18 @@ QG_EVAL_SAMPLES = 8
 # The Kolmogorov solver gate at 256^2, cut from the published 64 + 64
 # transitions to what the smoke's wall time allows.
 VALIDATE = {'size': 256, 'spinup': 32, 'window': 32, 'ensemble': 4}
+
+# Scale-out on one card. NCCL refuses two ranks on one device ("Duplicate
+# GPU detected"), so the two ranks talk over gloo, which stages CUDA tensors
+# through the host; they share the card, so their times are no speed
+# figure. sp: unet_0 in float32 on loop at 64 frames (the published 127 is
+# prime; 64 divides by 2 and 4), batch 1, 8 steps x 1 correction, chunks of
+# 8 windows with per-chunk remat, held to the JAX package's own sp parity
+# bound (__graft_entry__.py). dp: 4 AdamW steps of unet_0 in float32 at
+# global batch 32, 16 per rank, held as the card-against-CPU step is.
+PARALLEL_RANKS, PARALLEL_DEADLINE = 2, 300
+SP_FRAMES, SP_STEPS, SP_CHUNK, SP_ATOL = 64, 8, 8, 1e-4
+DP_STEPS, DP_BATCH = 4, 32
 
 T0 = time.perf_counter()
 
@@ -560,13 +590,7 @@ def step_card_against_cpu(trainset, device):
 
     grad_err = math.sqrt(sum((grads_c[n] - grads_h[n]).square().sum().item() for n in grads_h)
                          / sum(grads_h[n].square().sum().item() for n in grads_h))
-    worst, undetermined, total = 0.0, 0, 0
-    for n, g_h in grads_h.items():
-        free = (grads_c[n] - g_h).abs() > STEP_GRAD_FREE * g_h.abs()
-        diff = (params_c[n] - params_h[n]).abs()
-        worst = max(worst, diff[~free].max().item() if (~free).any() else 0.0)
-        undetermined += int(free.sum())
-        total += g_h.numel()
+    worst, undetermined, total = parameter_rule([grads_c], [grads_h], params_c, params_h)
     loss_err = abs(loss_c - loss_h) / abs(loss_h)
     log(f'loss card {loss_c:.6f} CPU {loss_h:.6f} (relative {loss_err:.2e}, limit {STEP_LOSS_RTOL}); '
         f'gradients relative L2 {grad_err:.2e} (limit {STEP_GRAD_RTOL}); max |dparam| after the step '
@@ -576,6 +600,24 @@ def step_card_against_cpu(trainset, device):
     check(grad_err <= STEP_GRAD_RTOL, f'gradients differ: {grad_err}')
     check(worst <= STEP_PARAM_ATOL, f'parameters differ after the step: {worst}')
     check(undetermined <= STEP_UNDETERMINED * total, f'{undetermined} gradients at noise level')
+
+
+def parameter_rule(grads_a, grads_b, params_a, params_b):
+    r"""``(worst, undetermined, total)``: the largest parameter difference
+    over the parameters whose gradient agreed to ``STEP_GRAD_FREE`` at every
+    step (``grads_a``/``grads_b``: one dict per step), and the count of
+    those that did not."""
+
+    worst, undetermined, total = 0.0, 0, 0
+    for n, p_b in params_b.items():
+        free = torch.zeros(p_b.shape, dtype=torch.bool)
+        for g_a, g_b in zip(grads_a, grads_b):
+            free |= (g_a[n] - g_b[n]).abs() > STEP_GRAD_FREE * g_b[n].abs()
+        diff = (params_a[n] - p_b).abs()
+        worst = max(worst, diff[~free].max().item() if (~free).any() else 0.0)
+        undetermined += int(free.sum())
+        total += p_b.numel()
+    return worst, undetermined, total
 
 
 def full_width_training(trainset, validset, device):
@@ -889,7 +931,7 @@ def lorenz_evaluation(device):
 
     w1 = [rows[('0', 'local_k2_0', str(C))][2] for C in LORENZ_CORRECTIONS]
     log(f'  local_k2_0 W1 over C = {LORENZ_CORRECTIONS}: {w1} (must fall strictly)')
-    check(w1[0] > w1[1] > w1[2], f'local_k2_0 W1 does not fall with C: {w1}')
+    check(all(a > b for a, b in zip(w1, w1[1:])), f'local_k2_0 W1 does not fall with C: {w1}')
     want = committed['lo'][('0', 'global_0', str(top))][2]
     gate(f'global_0 W1 at C = {top}', rows[('0', 'global_0', str(top))][2], want, want * (1 - GLOBAL_W1_RTOL),
          want * (1 + GLOBAL_W1_RTOL))
@@ -1049,16 +1091,16 @@ def qg_training(splits, device):
 
 
 def qg_assimilation(eps, x_star, device):
-    r"""The ``upper`` scenario with ``qg_0`` at the published 4 samples x
-    256 steps x 1 correction: the residual ratio and the bottom layer's
-    RMSE. Returns the seconds."""
+    r"""The ``upper`` scenario with ``qg_0`` at ``QG_SAMPLES`` samples x 256
+    steps x 1 correction: the residual ratio and the bottom layer's RMSE.
+    Returns the seconds."""
 
     committed = [r for r in csv_rows(QG_RESULTS / 'eval.csv') if r[:3] == ['posterior', 'qg_0', 'upper']]
     ratio_median, bottom_median = (float(np.median([float(r[k]) for r in committed])) for k in (4, 6))
 
     torch.cuda.reset_peak_memory_stats()
     (xs, residual, rmse), s = timed(lambda: qg_assimilate.assimilate(
-        eps, x_star, 'upper', samples=SAMPLES, steps=STEPS, corrections=CORRECTIONS, tau=0.5, seed=0))
+        eps, x_star, 'upper', samples=QG_SAMPLES, steps=STEPS, corrections=CORRECTIONS, tau=0.5, seed=0))
     check(bool(torch.isfinite(xs).all()), 'non-finite QG samples')
     log(f'samples {tuple(xs.shape)} in {s:.2f}s ({s / STEPS * 1e3:.1f} ms per step), peak memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
@@ -1153,6 +1195,252 @@ def qg_path(device):
         log(f'  {VALIDATE}: passed in {times["validation"]:.2f}s')
 
     return shape_results, launches, times
+
+
+def sp_sample(eps, device):
+    r"""``loop`` at ``SP_FRAMES`` frames with the trajectory eps ``eps``
+    (batch 1, ``SP_STEPS`` x 1 correction, seed 0); returns the sample and
+    ms per step."""
+
+    x_star = torch.zeros((1, 2, 64, 64), device=device)  # loop observes x[0] - x[-1] = 0, no truth
+    (xs, _), s = timed(lambda: assimilate(eps, x_star, samples=1, steps=SP_STEPS, corrections=1, tau=0.5, seed=0,
+                                          scenario='loop', length=SP_FRAMES, remat=True))
+    return xs, s / SP_STEPS * 1e3
+
+
+def dp_batches(data, device):
+    r"""``DP_STEPS`` batches of ``DP_BATCH`` windows of ``data`` with their
+    ``t`` and noise, drawn alike in every process on the card."""
+
+    dataset = TrajectoryDataset(data, window=5, flatten=True, device=device)
+    g = torch.Generator(device=device).manual_seed(6)
+    batches = []
+    for _ in range(DP_STEPS):
+        x = window_batch(dataset, g, DP_BATCH)
+        batches.append((x, torch.rand(DP_BATCH, generator=g, device=device),
+                        torch.randn(x.shape, generator=g, device=device)))
+    return batches
+
+
+def dp_steps(batches, device, mesh=None, halves=False):
+    r"""AdamW steps of the committed ``unet_0`` (float32) on ``batches``:
+    over ``mesh``'s ``'dp'`` axis if given, else in this process, each step
+    on the whole batch or, with ``halves``, on its two halves with their
+    losses weighted 1/2 and their gradients accumulated (the two ranks'
+    arithmetic). Returns the losses, the first step's gradients and the
+    parameters after it, the final parameters (on the CPU), and ms per
+    step."""
+
+    config = dict(KOLMOGOROV_CONFIG, size=64)
+    module = make_score(**config)
+    module.load_state_dict(params_from_flax(load_params(UNET_0 / 'state.msgpack')))
+    module.to(device)
+    data = TrajectoryDataset(batches[0][0][:, None], device=device)
+    trainer = Trainer(VPSDE(shape=tuple(batches[0][0].shape[1:])), module, data, data, mesh=mesh, **config)
+
+    def accumulated_step(x, t, z):
+        for group in trainer.optimizer.param_groups:
+            group['lr'] = trainer.lr(trainer.step)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = 0
+        for h in (slice(0, len(x) // 2), slice(len(x) // 2, len(x))):
+            part = trainer.loss(x[h], t[h], z[h]) * 0.5
+            part.backward()
+            loss = loss + part.detach()
+        trainer.optimizer.step()
+        trainer.step += 1
+        return loss
+
+    def snapshot(of):
+        return {n: getattr(p, of).detach().clone() for n, p in module.named_parameters()}
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (x, t, z) in enumerate(batches):
+        losses.append(accumulated_step(x, t, z) if halves else trainer.train_step(x, t, z))
+        if i == 0:
+            first_grads, first_params = snapshot('grad'), snapshot('data')
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+
+    def cpu(tensors):
+        return {n: v.cpu() for n, v in tensors.items()}
+
+    return torch.stack(losses).tolist(), cpu(first_grads), cpu(first_params), cpu(snapshot('data')), ms
+
+
+def parallel_rank(rank, port, out):
+    r"""One of the two ranks of ``parallel_two_ranks``: sp then dp, results
+    to ``out``."""
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the references in one process
+    device = init_multihost(f'127.0.0.1:{port}', PARALLEL_RANKS, rank, device='cuda', backend='gloo')
+    out = Path(out)
+
+    score, _ = load_score(UNET_0, device=device, bf16=False)
+    eps = make_trajectory_eps(score, 5, chunk=SP_CHUNK, remat=True, mesh=make_mesh({'sp': PARALLEL_RANKS}, device))
+    check(isinstance(eps, ShardedMCScoreNet), f'the sp score is a {type(eps).__name__}')
+    xs, sp_ms = sp_sample(eps, device)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    batches = dp_batches(torch.load(out / 'data.pt').to(device), device)
+    losses, grads, first, params, dp_ms = dp_steps(batches, device, make_mesh({'dp': PARALLEL_RANKS}, device))
+    flat = torch.cat([p.reshape(-1) for p in params.values()]).to(device)
+
+    result = {
+        'backend': dist.get_backend(), 'device': str(device), 'sample': xs.cpu(), 'sp_ms': sp_ms,
+        'sp_peak_gib': peak_gib, 'same_sample': equal_on_all_ranks(xs), 'losses': losses, 'dp_ms': dp_ms,
+        'same_params': equal_on_all_ranks(flat),
+    }
+    if rank == 0:
+        result.update(grads=grads, first=first, params=params)
+    torch.save(result, out / f'rank{rank}.pt')
+    dist.destroy_process_group()
+
+
+def parallel_two_ranks(data, device):
+    r"""Two ranks on the card over gloo, sp and dp at full width, each against
+    the same work in this process. Returns the times."""
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save(data.cpu(), tmp / 'data.pt')
+        port = free_port()
+        commands = [[sys.executable, __file__, '--parallel-rank', str(r), '--port', str(port), '--out', str(tmp)]
+                    for r in range(PARALLEL_RANKS)]
+        t0 = time.perf_counter()
+        ranks = run_ranks(commands, PARALLEL_DEADLINE)
+        ranks_s = time.perf_counter() - t0
+        for r, (code, out) in enumerate(ranks):
+            if code != 0:
+                print(out[-4000:], flush=True)
+            check(code == 0, f'rank {r} exited {code} (deadline {PARALLEL_DEADLINE} s)')
+        results = [torch.load(tmp / f'rank{r}.pt', weights_only=False) for r in range(PARALLEL_RANKS)]
+
+    log(f'{PARALLEL_RANKS} ranks in {ranks_s:.1f}s, start-up included: backend '
+        f'{[r["backend"] for r in results]} on {[r["device"] for r in results]} (NCCL refuses two ranks on one card)')
+    check(all(r['backend'] == 'gloo' and r['device'] == 'cuda:0' for r in results), 'ranks not on gloo and cuda:0')
+
+    # sp: the sharded sample against this process's MCScoreNet run, both with
+    # cuDNN's deterministic algorithms: the default ones accumulate the
+    # guidance's input gradient atomically, and two runs in one process then
+    # differ by as much as the bound.
+    score, _ = load_score(UNET_0, device=device, bf16=False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        single, single_ms = sp_sample(make_trajectory_eps(score, 5, chunk=SP_CHUNK, remat=True), device)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    sp_err = max((r['sample'].to(device) - single).abs().max().item() for r in results)
+    log(f'sp={PARALLEL_RANKS}, loop {SP_FRAMES} frames, {SP_STEPS} x 1, float32: max |sharded - single| {sp_err:.3e} '
+        f'(limit {SP_ATOL}); |x| max {single.abs().max().item():.3f}; ranks bitwise equal '
+        f'{[r["same_sample"] for r in results]}; ms per step {[round(r["sp_ms"], 1) for r in results]} per rank '
+        f'sharing the card, {single_ms:.1f} single; rank peak memory '
+        f'{[round(r["sp_peak_gib"], 2) for r in results]} GiB')
+    check(bool(torch.isfinite(single).all()), 'non-finite sp sample')
+    check(sp_err <= SP_ATOL, f'sharded sample differs by {sp_err}')
+    check(all(r['same_sample'] for r in results), "the ranks' samples differ")
+
+    # dp: the replicas' steps against this process's: the first step at the
+    # whole batch by the card-against-CPU step's rule, and every step on the
+    # two halves (the ranks' arithmetic) bitwise. Free-running steps at the
+    # whole batch drift apart through Adam's sign-like updates of gradients
+    # at float32 noise level; they are logged, not gated.
+    got = results[0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = dp_batches(data.to(device), device)
+        whole, grads, first, params, single_dp_ms = dp_steps(batches, device)
+        halves, _, _, halves_params, _ = dp_steps(batches, device, halves=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_err = abs(got['losses'][0] - whole[0]) / abs(whole[0])
+    worst, undetermined, total = parameter_rule([got['grads']], [grads], got['first'], first)
+    log(f'dp={PARALLEL_RANKS}, AdamW at batch {DP_BATCH} ({DP_BATCH // PARALLEL_RANKS} per rank), float32, first '
+        f'step against one process: loss relative {loss_err:.2e} (limit {STEP_LOSS_RTOL}); max |dparam| '
+        f'{worst:.2e} (limit {STEP_PARAM_ATOL}) over {total - undetermined} of {total} parameters, {undetermined} '
+        f'with a gradient at noise level (limit {STEP_UNDETERMINED * total:.0f})')
+    drift = max((got['params'][n] - p).abs().max().item() for n, p in params.items())
+    log(f'  {DP_STEPS} steps: losses {got["losses"]}; one process at the whole batch {whole} (relative '
+        f'{[f"{abs(a - b) / abs(b):.1e}" for a, b in zip(got["losses"], whole)]}, max |dparam| {drift:.2e}, not '
+        f'gated); on the two halves bitwise equal {got["losses"] == halves} (losses), '
+        f'{all(torch.equal(got["params"][n], p) for n, p in halves_params.items())} (parameters); replicas bitwise '
+        f'equal {[r["same_params"] for r in results]}; ms per step {[round(r["dp_ms"], 1) for r in results]} per '
+        f'rank sharing the card, {single_dp_ms:.1f} single')
+    check(loss_err <= STEP_LOSS_RTOL, f'dp loss differs: {got["losses"][0]} vs {whole[0]}')
+    check(worst <= STEP_PARAM_ATOL, f'dp parameters differ after the first step: {worst}')
+    check(undetermined <= STEP_UNDETERMINED * total, f'{undetermined} gradients at noise level')
+    check(got['losses'] == halves, f'dp losses {got["losses"]} differ from one process on the halves {halves}')
+    check(all(torch.equal(got['params'][n], p) for n, p in halves_params.items()),
+          'dp parameters differ from one process on the halves')
+    check(all(r['same_params'] for r in results), "the replicas' parameters differ")
+
+    return {'ranks': ranks_s, 'sp_ms': [r['sp_ms'] for r in results], 'sp_single_ms': single_ms,
+            'dp_ms': [r['dp_ms'] for r in results], 'dp_single_ms': single_dp_ms}
+
+
+def parallel_nccl(data, truth, device):
+    r"""NCCL at world 1 in this process: the Kolmogorov training command's dp
+    path for 2 steps at full width against the same run without a mesh, then
+    ``sp=1`` assimilation and a sharded guided eps over NCCL."""
+
+    init_multihost(f'127.0.0.1:{free_port()}', 1, 0, device='cuda')
+    try:
+        check(dist.get_backend() == 'nccl', f'backend {dist.get_backend()}')
+        runs = {}
+        # cuDNN's deterministic algorithms, so that the two runs differ only
+        # by the mesh (some weight-gradient algorithms accumulate atomically).
+        torch.backends.cudnn.deterministic = True
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for use_mesh in (True, False):
+                    path = Path(tmp) / f'mesh{use_mesh}'
+                    w = kolmogorov_train.train(0, epochs=2, batch_size=DP_BATCH, device=device, path=path,
+                                               trainset=data[:TRAIN_TRAJ], validset=data[TRAIN_TRAJ:],
+                                               use_mesh=use_mesh)
+                    check(bool(torch.isfinite(w).all()), 'non-finite training sample')
+                    run = path / 'runs/unet_0'
+                    files = sorted(p.name for p in run.iterdir())
+                    check(files == ['config.json', 'metrics.jsonl', 'state.msgpack'], f'run directory {files}')
+                    runs[use_mesh] = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        keys = ('loss_train', 'loss_valid')
+        log(f'kolmogorov train --mesh, NCCL world 1, 2 steps at batch {DP_BATCH}: '
+            f'{[{k: r[k] for k in keys} for r in runs[True]]}; without a mesh: '
+            f'{[{k: r[k] for k in keys} for r in runs[False]]}')
+        check(len(runs[True]) == 2, f'{len(runs[True])} epochs logged')
+        check([[r[k] for k in keys] for r in runs[True]] == [[r[k] for k in keys] for r in runs[False]],
+              'the dp losses at world 1 differ from the run without a mesh')
+
+        mesh = make_mesh({'sp': 1}, device)
+        score, _ = load_score(UNET_0, device=device)
+        eps = make_trajectory_eps(score, 5, mesh=mesh)
+        check(isinstance(eps, MCScoreNet), f'sp=1 gives a {type(eps).__name__}')
+        a = assimilate(eps, truth, samples=2, steps=4, seed=1)[0]
+        b = assimilate(make_trajectory_eps(score, 5), truth, samples=2, steps=4, seed=1)[0]
+        log(f'assimilate with mesh sp=1 against none, 4 steps: bitwise equal {torch.equal(a, b)}')
+        check(torch.equal(a, b), f'sp=1 assimilation differs by {(a - b).abs().max().item()}')
+
+        f32, _ = load_score(UNET_0, device=device, bf16=False)
+        A, y, std, length, gamma = get_scenario('coarse', truth, np.random.RandomState(0))
+        x = torch.randn((2, length, 2, 64, 64), generator=torch.Generator(device=device).manual_seed(7), device=device)
+        tt = torch.tensor(0.5, device=device)
+
+        def guided(s):
+            return GaussianScore(y, A, std, VPSDE(eps=s, shape=()), gamma=gamma)(x, tt)
+
+        sharded, plain = guided(ShardedMCScoreNet(f32, 2, mesh=mesh)), guided(MCScoreNet(f32, 2))
+        err = (sharded - plain).abs().max().item()
+        bound = SP_ATOL * max(1.0, plain.abs().max().item())
+        log(f'guided eps through ShardedMCScoreNet at sp=1 over NCCL (an all-gather forward and backward) '
+            f'against MCScoreNet, float32: max |diff| {err:.3e} (limit {bound:.3e})')
+        check(err <= bound, f'sharded guided eps differs by {err}')
+    finally:
+        dist.destroy_process_group()
 
 
 def main():
@@ -1323,6 +1611,13 @@ def main():
     # -- The QG path and the Kolmogorov solver gate. ----------------------
     qg_shape, qg_launches, qg_times = qg_path(device)
 
+    # -- Scale-out. ------------------------------------------------------
+    with phase('parallel: two ranks on the card (gloo)'):
+        parallel_times = parallel_two_ranks(data[:TRAIN_TRAJ], device)
+
+    with phase('parallel: NCCL at world 1'):
+        parallel_nccl(data, truth[0], device)
+
     with phase('kernels summary'):
         source = 'sda_tpu_torch/csrc/dft.cu'
         replaces = {'rfft2': 'sda_tpu/ops/pallas_dft.py:78', 'irfft2': 'sda_tpu/ops/pallas_dft.py:127'}
@@ -1341,7 +1636,7 @@ def main():
             f'{bpf_s["lo"]:.1f}s (lo), {bpf_s["hi"]:.1f}s (hi) per index; {lbfgs_ms:.2f} ms per L-BFGS update; '
             f'QG data {qg_times["data"]:.1f}s, qg_0 {qg_times["step_ms"]:.1f} ms per training step, QG '
             f'assimilation {qg_times["assimilation"]:.1f}s, QG evaluation {qg_times["evaluation"]:.1f}s, solver '
-            f'gate {qg_times["validation"]:.1f}s')
+            f'gate {qg_times["validation"]:.1f}s; two ranks {parallel_times["ranks"]:.1f}s')
         qg_rows = {name: {n: qg_shape[n][name] for n in QG_BATCHES} for name in ('rfft2', 'irfft2')}
         log('kernels at the QG shape (128^2, 43 modes; launches on the QG data path): ' + json.dumps(
             {'launches': qg_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in QG_BATCHES},
@@ -1354,4 +1649,12 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument('--parallel-rank', type=int, default=None, help='run one rank of the two-rank phase')
+    parser.add_argument('--port', type=int, default=None)
+    parser.add_argument('--out', type=str, default=None)
+    args = parser.parse_args()
+    if args.parallel_rank is None:
+        main()
+    else:
+        parallel_rank(args.parallel_rank, args.port, args.out)

@@ -37,9 +37,11 @@ class GaussianScore:
         detach: If True, do not differentiate through the eps network.
         remat: If True, recompute the eps network in the backward pass
             instead of keeping its activations (``torch.utils.checkpoint``).
-            A chunked :class:`MCScoreNet` without per-chunk remat is rebuilt
-            with it, since checkpointing only the outer call would still
-            keep every chunk's activations during the recomputation.
+            A chunked :class:`MCScoreNet` or
+            :class:`~sda_tpu_torch.parallel.ShardedMCScoreNet` without
+            per-chunk remat is rebuilt with it, since checkpointing only the
+            outer call would still keep every chunk's activations during the
+            recomputation.
     """
 
     def __init__(
@@ -60,10 +62,14 @@ class GaussianScore:
         self.detach = detach
         self.remat = remat
 
+        from ..parallel.windowed import ShardedMCScoreNet  # which imports this package
+
         inner = sde.eps
-        if remat and isinstance(inner, MCScoreNet) and inner.chunk is not None and not inner.remat:
+        chunked = (MCScoreNet, ShardedMCScoreNet)
+        if remat and isinstance(inner, chunked) and inner.chunk is not None and not inner.remat:
             self.sde = copy(sde)
-            self.sde.eps = MCScoreNet(inner.kernel, inner.order, chunk=inner.chunk, remat=True)
+            self.sde.eps = copy(inner)
+            self.sde.eps.remat = True
 
     def _eps(self, x: Tensor, t: Tensor, c: Optional[Tensor]) -> Tensor:
         r"""The prior eps, checkpointed when ``remat`` asks for it and the

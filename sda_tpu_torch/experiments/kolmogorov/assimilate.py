@@ -20,8 +20,12 @@ values at 64^2):
 - ``vorticity``: the vorticity of every frame.
 
     python -m sda_tpu_torch.experiments.kolmogorov.assimilate --scenario subsample --method dps [--device cpu]
+    torchrun --nproc_per_node 4 -m sda_tpu_torch.experiments.kolmogorov.assimilate --scenario loop --mesh sp=4
 
-The command line reads ``storage/{data}/test.h5`` (``h5py``) and the run's
+``--mesh sp=N`` (or ``dp=M,sp=N``) splits the trajectory's windows over the
+``sp`` ranks of a ``torchrun`` launch; every rank draws the same samples,
+which equal the run without a mesh, and ``dp`` only shapes the mesh. The
+command line reads ``storage/{data}/test.h5`` (``h5py``) and the run's
 weights; :func:`assimilate` takes a score and a reference trajectory.
 """
 
@@ -29,13 +33,15 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...diffusion import VPSDE, DPSGaussianScore, GaussianScore
 from ...dynamics import coarsen, upsample, vorticity
+from ...parallel import make_mesh
 from ...utils import resolve_device
 from .utils import PATH, load_score, make_chain, make_trajectory_eps
 
@@ -243,6 +249,12 @@ def resimulate(xs: Tensor, size: int = 256) -> Tuple[Tensor, float]:
     return sim, corr
 
 
+def parse_mesh(mesh: str) -> Dict[str, int]:
+    r"""``'dp=2,sp=4'`` -> ``{'dp': 2, 'sp': 4}``."""
+
+    return {k: int(v) for k, v in (kv.split('=') for kv in mesh.split(','))}
+
+
 def main(
     run: str = 'unet_0',
     scenario: str = 'coarse',
@@ -266,17 +278,22 @@ def main(
     data: str = 'data',
     segments: int = 1,
     device: Union[str, torch.device] = 'cuda',
-) -> Tuple[float, float, Tensor]:
+) -> Optional[Tuple[float, float, Tensor]]:
     r"""Assimilates test trajectory ``seed`` with the committed run ``run``
     as the JAX experiment's ``assimilate`` does; returns ``(residual, std,
-    samples)``. ``bf16=None`` follows the run's config."""
+    samples)``, or ``None`` on a rank outside the ``mesh``. ``bf16=None``
+    follows the run's config."""
 
-    if mesh is not None:
-        raise NotImplementedError('--mesh waits for the port of sda_tpu/parallel')
     if render:
         raise NotImplementedError('rendering waits for the port of sda_tpu/viz; use --save')
 
     from ...train import load_h5
+
+    if mesh is not None:
+        mesh = make_mesh(parse_mesh(mesh), device)
+        if mesh.get_coordinate() is None:
+            return None
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     device = resolve_device(device)
     x_test = load_h5(PATH / f'{data}/test.h5')
@@ -284,7 +301,7 @@ def main(
 
     override = {} if bf16 is None else {'bf16': bf16}
     module, config = load_score(PATH / f'runs/{run}', device=device, **override)
-    score = make_trajectory_eps(module, config.get('window', 5), chunk=chunk, remat=remat)
+    score = make_trajectory_eps(module, config.get('window', 5), chunk=chunk, remat=remat, mesh=mesh)
 
     t0 = time.perf_counter()
     xs, residual = assimilate(
@@ -294,17 +311,18 @@ def main(
     )
     std = get_scenario(scenario, x_star, np.random.RandomState(seed), stride, offset, length)[2]
     label = scenario_label(scenario, stride, offset)
-    print(f'{label}[{method}]: residual std = {residual:.4f} (obs std = {std}) '
-          f'in {time.perf_counter() - t0:.1f}s')
+    if lead:
+        print(f'{label}[{method}]: residual std = {residual:.4f} (obs std = {std}) '
+              f'in {time.perf_counter() - t0:.1f}s')
 
-    if save:
+    if save and lead:
         suffix = '' if method == 'sda' else f'_{method}'
         out = PATH / f'results/samples_{label}_{run}{suffix}.npz'
         out.parent.mkdir(parents=True, exist_ok=True)
         np.savez_compressed(out, xs=xs.float().cpu().numpy(), x_star=x_star[:xs.shape[1]].cpu().numpy())
         print(f'saved {out}')
 
-    if scenario == 'circle':
+    if scenario == 'circle' and lead:
         _, corr = resimulate(xs)
         print(f'circle: sim-vs-sample correlation = {corr:.4f}')
 
@@ -325,7 +343,9 @@ if __name__ == '__main__':
     parser.add_argument('--method', choices=['sda', 'dps'], default='sda')
     parser.add_argument('--stride', type=int, default=8, help='subsample scenario: pixel stride')
     parser.add_argument('--offset', type=int, default=0, help='subsample scenario: grid offset')
-    parser.add_argument('--mesh', type=str, default=None, help='refused: waits for the port of sda_tpu/parallel')
+    parser.add_argument('--mesh', type=str, default=None,
+                        help="sequence-parallel mesh, e.g. 'sp=4' (trajectory length must divide by sp, "
+                             'each shard must hold a window)')
     parser.add_argument('--length', type=int, default=None, help='loop scenario: trajectory length')
     parser.add_argument('--render', action='store_true', help='refused: waits for the port of sda_tpu/viz')
     parser.add_argument('--save', action='store_true', help='save posterior samples + truth to results/*.npz')
@@ -344,3 +364,5 @@ if __name__ == '__main__':
         offset=args.offset, mesh=args.mesh, length=args.length, save=args.save, solver=args.solver,
         bf16=args.bf16, gamma=args.gamma, data=args.data, segments=args.segments, device=args.device,
     )
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -7,6 +7,11 @@ linear decay), trained on flattened 5-frame windows of the 64^2 dataset, a
 resumable checkpoint every 64 epochs and a final 2-sample sanity draw.
 
     python -m sda_tpu_torch.experiments.kolmogorov.train --seed 0 [--bf16] [--resume] [--device cpu]
+    torchrun --nproc_per_node 8 -m sda_tpu_torch.experiments.kolmogorov.train --seed 0 --mesh
+
+``--mesh`` splits each batch over every rank of a ``torchrun`` launch (data
+parallelism; NCCL on the card, gloo with ``--device cpu``); rank 0 alone
+writes the run directory.
 
 The command line reads ``storage/<data>/{train,valid}.h5`` (``h5py``);
 :func:`train` also takes the splits as tensors, as from
@@ -20,10 +25,12 @@ from pathlib import Path
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ...diffusion import VPSDE
 from ...dynamics import vorticity
 from ...nn import reset_parameters
+from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
 from ...utils import resolve_device, save_config
 from .utils import PATH, make_score
@@ -58,14 +65,20 @@ def train(
     path: Path = PATH,
     trainset=None,
     validset=None,
-) -> torch.Tensor:
+    use_mesh: bool = False,
+) -> Optional[torch.Tensor]:
     r"""Trains ``unet_<seed>`` (``unet<size>_<seed>`` beyond 64^2) under
-    ``path/runs``; returns the vorticity of the final 2 samples.
+    ``path/runs``; returns the vorticity of the final 2 samples (``None`` on
+    ranks other than 0).
 
     ``trainset``/``validset`` are ``(N, L, 2, size, size)`` trajectories
-    (default: the HDF5 splits under ``path/<data>``).
+    (default: the HDF5 splits under ``path/<data>``). ``use_mesh`` splits
+    each batch over every rank of the process group (brought up from
+    ``torchrun``'s environment if none is).
     """
 
+    mesh = make_mesh(device=device) if use_mesh else None
+    lead = mesh is None or dist.get_rank() == 0
     device = resolve_device(device)
     config = dict(CONFIG)
     if epochs is not None:
@@ -78,11 +91,11 @@ def train(
 
     name = f'unet_{seed}' if size == 64 else f'unet{size}_{seed}'
     runpath = Path(path) / f'runs/{name}'
-    runpath.mkdir(parents=True, exist_ok=True)
-    if not (runpath / 'config.json').exists():
-        save_config(config, runpath)
-
-    logger = RunLogger(runpath)
+    if lead:
+        runpath.mkdir(parents=True, exist_ok=True)
+        if not (runpath / 'config.json').exists():
+            save_config(config, runpath)
+        logger = RunLogger(runpath)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     window = config['window']
@@ -94,7 +107,7 @@ def train(
     trainset = TrajectoryDataset(trainset, window=window, flatten=True, device=device)
     validset = TrajectoryDataset(validset, window=window, flatten=True, device=device)
 
-    trainer = Trainer(sde, module, trainset, validset, generator=generator, **config)
+    trainer = Trainer(sde, module, trainset, validset, generator=generator, mesh=mesh, **config)
 
     ckpt = runpath / 'checkpoint.msgpack'
     if resume and ckpt.exists():
@@ -102,12 +115,16 @@ def train(
         print(f'resumed at epoch {trainer.epoch}')
 
     for stats in trainer:
+        if not lead:
+            continue
         logger.log(stats, step=trainer.epoch)
 
         if trainer.epoch % 64 == 0:
             save_checkpoint(trainer, ckpt)
             save_params(module, runpath / 'state.msgpack')
 
+    if not lead:
+        return None
     save_params(module, runpath / 'state.msgpack')
 
     # Final sanity sample.
@@ -131,9 +148,12 @@ if __name__ == '__main__':
     parser.add_argument('--data', type=str, default=None,
                         help="dataset subdir (default: 'data' at 64, 'data<size>' otherwise)")
     parser.add_argument('--batch', type=int, default=None, help='batch size override (default: config 32)')
+    parser.add_argument('--mesh', action='store_true', help='split batches over every rank of the launch')
     parser.add_argument('--device', type=str, default='cuda')
     args = parser.parse_args()
 
     data = args.data or ('data' if args.size == 64 else f'data{args.size}')
     train(args.seed, args.epochs, args.bf16, args.resume, size=args.size, data=data,
-          batch_size=args.batch, device=args.device)
+          batch_size=args.batch, device=args.device, use_mesh=args.mesh)
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -1,7 +1,7 @@
 r"""Kolmogorov experiment factories.
 
 Counterpart of ``experiments/kolmogorov/utils.py`` (``make_chain``,
-``make_score``, ``load_score`` and the unsharded ``make_trajectory_eps``).
+``make_score``, ``load_score`` and ``make_trajectory_eps``).
 The committed runs under ``experiments/kolmogorov/storage/runs`` are read
 with the port's own msgpack reader; their weights are converted in memory.
 """
@@ -16,6 +16,8 @@ import torch
 
 from ...diffusion import LocalScoreUNet, MCScoreNet, bind_eps
 from ...dynamics import KolmogorovFlow
+from ...parallel import ShardedMCScoreNet
+from ...parallel.mesh import axis_size
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
 
@@ -76,10 +78,16 @@ def load_score(
 
 
 def make_trajectory_eps(
-    module, window: int = 5, chunk: Optional[int] = None, remat: bool = False,
-) -> MCScoreNet:
+    module, window: int = 5, chunk: Optional[int] = None, remat: bool = False, mesh=None,
+) -> Union[MCScoreNet, ShardedMCScoreNet]:
     r"""Composes the window kernel into a full-trajectory eps function,
     evaluated in chunks of ``chunk`` windows (each checkpointed if
-    ``remat``) when given."""
+    ``remat``) when given. With a ``mesh`` whose ``'sp'`` axis has more than
+    one rank, the windows are split over that axis
+    (:class:`~sda_tpu_torch.parallel.ShardedMCScoreNet`), and each shard
+    evaluates its own in chunks: the two levers compose."""
+
+    if axis_size(mesh, 'sp') > 1:
+        return ShardedMCScoreNet(module, order=window // 2, mesh=mesh, chunk=chunk, remat=remat)
 
     return MCScoreNet(module, order=window // 2, chunk=chunk, remat=remat)

@@ -8,6 +8,11 @@ epochs, batch 64, AdamW 1e-3, linear decay), a resumable checkpoint every
 windows or 1024 global trajectories at 64 steps.
 
     python -m sda_tpu_torch.experiments.lorenz.train --model local [--window 3] [--device cpu]
+    torchrun --nproc_per_node 2 -m sda_tpu_torch.experiments.lorenz.train --model local --mesh
+
+``--mesh`` splits each batch over every rank of a ``torchrun`` launch (data
+parallelism; NCCL on the card, gloo with ``--device cpu``); rank 0 alone
+writes the run directory and samples the final ``log_p``.
 
 The command line reads ``storage/data/{train,valid}.h5`` (``h5py``);
 :func:`train` also takes the splits as tensors.
@@ -20,9 +25,11 @@ from pathlib import Path
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ...diffusion import VPSDE, MCScoreWrapper
 from ...nn import reset_parameters
+from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
 from ...utils import resolve_device, save_config
 from .utils import PATH, make_chain, make_global_score, make_local_score
@@ -69,13 +76,19 @@ def train(
     path: Path = PATH,
     trainset=None,
     validset=None,
-) -> float:
-    r"""Trains one run under ``path/runs`` and returns its final ``log_p``.
+    use_mesh: bool = False,
+) -> Optional[float]:
+    r"""Trains one run under ``path/runs`` and returns its final ``log_p``
+    (``None`` on ranks other than 0).
 
     ``trainset``/``validset`` are ``(N, L, 3)`` standardized trajectories
-    (default: the HDF5 splits under ``path/data``).
+    (default: the HDF5 splits under ``path/data``). ``use_mesh`` splits each
+    batch over every rank of the process group (brought up from
+    ``torchrun``'s environment if none is).
     """
 
+    mesh = make_mesh(device=device) if use_mesh else None
+    lead = mesh is None or dist.get_rank() == 0
     device = resolve_device(device)
     config = dict(GLOBAL_CONFIG if model == 'global' else LOCAL_CONFIG)
     if epochs is not None:
@@ -87,11 +100,11 @@ def train(
         runpath = Path(path) / f'runs/local_k{config["window"] // 2}_{seed}'
     else:
         runpath = Path(path) / f'runs/{model}_{seed}'
-    runpath.mkdir(parents=True, exist_ok=True)
-    if not (runpath / 'config.json').exists():
-        save_config(config, runpath)
-
-    logger = RunLogger(runpath)
+    if lead:
+        runpath.mkdir(parents=True, exist_ok=True)
+        if not (runpath / 'config.json').exists():
+            save_config(config, runpath)
+        logger = RunLogger(runpath)
     generator = torch.Generator(device=device).manual_seed(seed)
     init = torch.Generator().manual_seed(seed)
 
@@ -113,7 +126,9 @@ def train(
     trainset = TrajectoryDataset(trainset, window=window, flatten=flatten, device=device)
     validset = TrajectoryDataset(validset, window=window, flatten=flatten, device=device)
 
-    trainer = Trainer(sde, module, trainset, validset, generator=generator, eps_wrapper=eps_wrapper, **config)
+    trainer = Trainer(
+        sde, module, trainset, validset, generator=generator, eps_wrapper=eps_wrapper, mesh=mesh, **config,
+    )
 
     ckpt = runpath / 'checkpoint.msgpack'
     if resume and ckpt.exists():
@@ -121,12 +136,16 @@ def train(
         print(f'resumed at epoch {trainer.epoch}')
 
     for stats in trainer:
+        if not lead:
+            continue
         logger.log(stats, step=trainer.epoch)
 
         if trainer.epoch % 256 == 0:
             save_checkpoint(trainer, ckpt)
             save_params(module, runpath / 'state.msgpack')
 
+    if not lead:
+        return None
     save_params(module, runpath / 'state.msgpack')
 
     log_p = float(sample_log_p(module, model == 'local', window, generator).mean())
@@ -165,7 +184,10 @@ if __name__ == '__main__':
     parser.add_argument('--epochs', type=int, default=None)
     parser.add_argument('--resume', action='store_true', help='continue from the latest checkpoint')
     parser.add_argument('--window', type=int, default=None, help='local window size 2k+1 (k-sweep)')
+    parser.add_argument('--mesh', action='store_true', help='split batches over every rank of the launch')
     parser.add_argument('--device', type=str, default='cuda')
     args = parser.parse_args()
 
-    train(args.model, args.seed, args.epochs, args.resume, args.window, args.device)
+    train(args.model, args.seed, args.epochs, args.resume, args.window, args.device, use_mesh=args.mesh)
+    if dist.is_initialized():
+        dist.destroy_process_group()

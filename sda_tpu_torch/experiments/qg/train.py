@@ -9,6 +9,11 @@ weights snapshot every 64 epochs, and a final 2-sample sanity draw whose
 statistics are printed (the JAX pack renders them).
 
     python -m sda_tpu_torch.experiments.qg.train --seed 0 [--epochs N] [--resume] [--device cpu]
+    torchrun --nproc_per_node 8 -m sda_tpu_torch.experiments.qg.train --seed 0 --mesh
+
+``--mesh`` splits each batch over every rank of a ``torchrun`` launch (data
+parallelism; NCCL on the card, gloo with ``--device cpu``); rank 0 alone
+writes the run directory.
 
 The command line reads ``storage/data/{train,valid}.h5`` (``h5py``);
 :func:`train` also takes the splits as tensors, as from
@@ -22,8 +27,10 @@ from pathlib import Path
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ...diffusion import VPSDE
+from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
 from ...utils import resolve_device, save_config
 from .utils import PATH, init_score, make_score
@@ -54,25 +61,31 @@ def train(
     path: Path = PATH,
     trainset=None,
     validset=None,
-) -> torch.Tensor:
+    use_mesh: bool = False,
+) -> Optional[torch.Tensor]:
     r"""Trains ``qg_<seed>`` under ``path/runs``; returns the final 2
-    sampled windows ``(2, window, 2, size, size)``.
+    sampled windows ``(2, window, 2, size, size)`` (``None`` on ranks other
+    than 0).
 
     ``trainset``/``validset`` are ``(N, L, 2, size, size)`` trajectories
-    (default: the HDF5 splits under ``path/data``).
+    (default: the HDF5 splits under ``path/data``). ``use_mesh`` splits each
+    batch over every rank of the process group (brought up from
+    ``torchrun``'s environment if none is).
     """
 
+    mesh = make_mesh(device=device) if use_mesh else None
+    lead = mesh is None or dist.get_rank() == 0
     device = resolve_device(device)
     config = dict(CONFIG)
     if epochs is not None:
         config['epochs'] = epochs
 
     runpath = Path(path) / f'runs/qg_{seed}'
-    runpath.mkdir(parents=True, exist_ok=True)
-    if not (runpath / 'config.json').exists():
-        save_config(config, runpath)
-
-    logger = RunLogger(runpath)
+    if lead:
+        runpath.mkdir(parents=True, exist_ok=True)
+        if not (runpath / 'config.json').exists():
+            save_config(config, runpath)
+        logger = RunLogger(runpath)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     window, size = config['window'], config['size']
@@ -84,7 +97,7 @@ def train(
     trainset = TrajectoryDataset(trainset, window=window, flatten=True, device=device)
     validset = TrajectoryDataset(validset, window=window, flatten=True, device=device)
 
-    trainer = Trainer(sde, module, trainset, validset, generator=generator, **config)
+    trainer = Trainer(sde, module, trainset, validset, generator=generator, mesh=mesh, **config)
 
     ckpt = runpath / 'checkpoint.msgpack'
     if resume and ckpt.exists():
@@ -92,6 +105,8 @@ def train(
         print(f'resumed at epoch {trainer.epoch}')
 
     for stats in trainer:
+        if not lead:
+            continue
         logger.log(stats, step=trainer.epoch)
 
         if trainer.epoch % 64 == 0:
@@ -99,6 +114,8 @@ def train(
             # A loadable weights snapshot: a run cut short stays usable.
             save_params(module, runpath / 'state.msgpack')
 
+    if not lead:
+        return None
     save_params(module, runpath / 'state.msgpack')
 
     # Final sanity sample: unconditional windows, both layers.
@@ -119,11 +136,11 @@ if __name__ == '__main__':
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--epochs', type=int, default=None)
-    parser.add_argument('--mesh', action='store_true', help='refused: waits for the port of sda_tpu/parallel')
+    parser.add_argument('--mesh', action='store_true', help='split batches over every rank of the launch')
     parser.add_argument('--resume', action='store_true', help='continue from the latest checkpoint')
     parser.add_argument('--device', type=str, default='cuda')
     args = parser.parse_args()
 
-    if args.mesh:
-        raise NotImplementedError('--mesh waits for the port of sda_tpu/parallel')
-    train(args.seed, args.epochs, args.resume, device=args.device)
+    train(args.seed, args.epochs, args.resume, device=args.device, use_mesh=args.mesh)
+    if dist.is_initialized():
+        dist.destroy_process_group()

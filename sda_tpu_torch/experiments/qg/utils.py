@@ -1,7 +1,7 @@
 r"""Quasi-geostrophic experiment factories.
 
 Counterpart of ``experiments/qg/utils.py`` (``make_chain``, ``make_score``,
-``init_score``, ``load_score`` and the unsharded ``make_trajectory_eps``).
+``init_score``, ``load_score`` and ``make_trajectory_eps``).
 States are two-layer potential-vorticity fields ``(L, 2, H, W)``; the window
 kernel is a plain circular :class:`ScoreUNet` over ``window * 2`` channels,
 with no forcing channel (the beta-plane background is homogeneous). The
@@ -20,6 +20,8 @@ import torch
 from ...diffusion import MCScoreNet, ScoreUNet, bind_eps
 from ...dynamics import QuasiGeostrophic
 from ...nn import reset_parameters
+from ...parallel import ShardedMCScoreNet
+from ...parallel.mesh import axis_size
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
 
@@ -89,13 +91,16 @@ def load_score(
     return bind_eps(module, params).to(device), config
 
 
-def make_trajectory_eps(module, window: int = 5, chunk: Optional[int] = None, mesh=None) -> MCScoreNet:
+def make_trajectory_eps(
+    module, window: int = 5, chunk: Optional[int] = None, mesh=None,
+) -> Union[MCScoreNet, ShardedMCScoreNet]:
     r"""Composes the window kernel into a full-trajectory eps function
     (Markov-blanket decomposition of order ``window // 2``), evaluated in
-    chunks of ``chunk`` windows when given. A ``mesh`` is refused until
-    ``sda_tpu/parallel`` is ported."""
+    chunks of ``chunk`` windows when given. With a ``mesh`` whose ``'sp'``
+    axis has more than one rank, the windows are split over that axis
+    instead, unchunked, as in the JAX pack."""
 
-    if mesh is not None:
-        raise NotImplementedError('a mesh waits for the port of sda_tpu/parallel')
+    if axis_size(mesh, 'sp') > 1:
+        return ShardedMCScoreNet(module, order=window // 2, mesh=mesh)
 
     return MCScoreNet(module, order=window // 2, chunk=chunk)

@@ -5,6 +5,11 @@ device; shuffles and random temporal crops are drawn there from a
 ``torch.Generator``, or taken from the caller (``perm``, ``starts``) so that
 tests can replay the JAX package's draws.
 
+Under data parallelism a dataset may hold only some rows of the global one
+(:func:`~sda_tpu_torch.parallel.host_sharded_array`): its length, shuffles
+and draws stay the global dataset's, and the trainer computes the batch
+positions whose rows it holds.
+
 ``h5py`` is imported inside :func:`save_h5` and :func:`load_h5` only: the
 training path takes tensors and runs without it.
 """
@@ -17,6 +22,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import HostShardedRows
 from ..utils import resolve_device
 
 Tensor = torch.Tensor
@@ -47,11 +53,15 @@ class TrajectoryDataset:
     r"""Device-resident trajectory dataset.
 
     Arguments:
-        data: The trajectories ``(N, L, C, *spatial)`` (array, tensor or
-            HDF5 path).
+        data: The trajectories ``(N, L, C, *spatial)`` (array, tensor, HDF5
+            path, or this rank's rows from
+            :func:`~sda_tpu_torch.parallel.host_sharded_array`).
         window: The temporal crop length (``None`` keeps full trajectories).
         flatten: Whether to merge ``(window, C) -> (window * C,)`` per item.
         device: Where the data lives.
+
+    ``data`` holds the rows ``[offset, offset + len(data))`` of the
+    ``len(self)`` rows of the dataset (all of them unless host-sharded).
     """
 
     def __init__(
@@ -64,16 +74,41 @@ class TrajectoryDataset:
         if isinstance(data, (str, Path)):
             data = load_h5(data)
 
+        self.sharded = isinstance(data, HostShardedRows)
+        if self.sharded:
+            self.offset, self.rows = data.offset, data.shape[0]
+            data = data.local
         self.data = torch.as_tensor(data, dtype=torch.float32).to(resolve_device(device))
+        if not self.sharded:
+            self.offset, self.rows = 0, self.data.shape[0]
         self.window = window
         self.flatten = flatten
 
     def __len__(self) -> int:
-        return self.data.shape[0]
+        return self.rows
 
     @property
     def length(self) -> int:
         return self.data.shape[1]
+
+    @property
+    def item_shape(self) -> Tuple[int, ...]:
+        r"""The shape of one cropped item."""
+
+        shape = tuple(self.data.shape[1:])
+        if self.window is None:
+            return shape
+        if self.flatten:
+            return (self.window * shape[1],) + shape[2:]
+        return (self.window,) + shape[1:]
+
+    def draw_starts(self, n: int, generator: Optional[torch.Generator] = None) -> Optional[Tensor]:
+        r"""``n`` crop starts in ``[0, L - window]`` from ``generator``
+        (``None`` without a window)."""
+
+        if self.window is None:
+            return None
+        return torch.randint(0, self.length - self.window + 1, (n,), generator=generator, device=self.data.device)
 
     def crop(
         self,
@@ -89,9 +124,7 @@ class TrajectoryDataset:
             return x
 
         if starts is None:
-            starts = torch.randint(
-                0, x.shape[1] - self.window + 1, (x.shape[0],), generator=generator, device=x.device,
-            )
+            starts = self.draw_starts(x.shape[0], generator)
         frames = starts.to(x.device)[:, None] + torch.arange(self.window, device=x.device)
         x = x[torch.arange(x.shape[0], device=x.device)[:, None], frames]
 

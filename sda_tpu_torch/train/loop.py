@@ -11,6 +11,14 @@ the update) is optax's ``adamw`` with the same schedule:
 Every draw (shuffles, crops, ``t`` and the noise) comes from the trainer's
 ``torch.Generator``, unless a ``draws(epoch)`` hook supplies them, as the
 tests do to replay the JAX package's PRNG streams.
+
+Data parallelism (``mesh`` with a ``'dp'`` axis) splits the single-process
+batch: every rank makes the same draws for the whole batch, computes the loss
+terms of its part (its slice of the batch positions, or the positions whose
+rows it holds when the dataset is host-sharded), and one ``all_reduce`` per
+step sums the parts' gradients and losses, each part weighted by its share
+of the batch. Every rank then takes the same AdamW step, so the replicas stay
+equal, bit for bit.
 """
 
 from __future__ import annotations
@@ -19,9 +27,11 @@ import math
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..diffusion.sde import VPSDE
+from ..parallel.mesh import batch_constraint, replicate
 from .data import TrajectoryDataset
 
 Tensor = torch.Tensor
@@ -60,6 +70,9 @@ class Trainer:
         eps_wrapper: Optional wrapper of the module into the eps function
             the loss calls (e.g. :class:`~sda_tpu_torch.diffusion.MCScoreWrapper`).
         draws: Optional hook supplying an epoch's draws (see ``Draws``).
+        mesh: An optional process mesh; batches are split over its ``'dp'``
+            axis (data parallelism) and the module is broadcast from its
+            first rank. Every rank of the mesh builds the trainer alike.
     """
 
     def __init__(
@@ -77,12 +90,15 @@ class Trainer:
         generator: Optional[torch.Generator] = None,
         eps_wrapper: Optional[Callable] = None,
         draws: Optional[Draws] = None,
+        mesh=None,
         **absorb,
     ):
         if optimizer != 'AdamW':
             raise ValueError(f"unknown optimizer '{optimizer}'")
         if scheduler not in SCHEDULES:
             raise ValueError(f"unknown scheduler '{scheduler}'")
+        if mesh is None and (trainset.sharded or validset.sharded):
+            raise ValueError('a host-sharded dataset needs the mesh it is sharded over')
 
         self.sde = sde
         self.module = module
@@ -98,6 +114,10 @@ class Trainer:
         if generator is None:
             generator = torch.Generator(device=trainset.data.device).manual_seed(0)
         self.generator = generator
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.get_group('dp')
+        if mesh is not None:
+            replicate(module, mesh)
 
         self.optimizer = torch.optim.AdamW(
             module.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
@@ -116,30 +136,95 @@ class Trainer:
         return self.sde.loss(x, eps=self.eps, generator=self.generator, t=t, z=z)
 
     def train_step(self, x: Tensor, t: Optional[Tensor] = None, z: Optional[Tensor] = None) -> Tensor:
-        r"""One AdamW step on the batch ``x``; returns its loss (detached)."""
+        r"""One AdamW step on the batch ``x`` (under a mesh, the global batch,
+        the same on every rank); returns its loss (detached)."""
+
+        if t is None:
+            t = torch.rand((x.shape[0],), generator=self.generator, device=x.device, dtype=x.dtype)
+        if z is None:
+            z = torch.randn(x.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        part = torch.arange(x.shape[0], device=x.device)
+        if self.mesh is not None:
+            part = batch_constraint(part, self.mesh)
+
+        return self._step(x[part], t[part], z[part], len(part) / x.shape[0])
+
+    def _step(self, x: Tensor, t: Tensor, z: Tensor, share: float) -> Tensor:
+        r"""One AdamW step on this rank's part ``x`` of a batch, ``share`` of
+        it; returns the batch's loss."""
 
         for group in self.optimizer.param_groups:
             group['lr'] = self.lr(self.step)
 
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(x, t, z)
-        loss.backward()
+        if len(x):
+            loss = self.loss(x, t, z) * share
+            loss.backward()
+        else:
+            loss = torch.zeros((), device=t.device)
+        if self.group is not None:
+            loss = self._all_reduce(loss)
         self.optimizer.step()
         self.step += 1
 
         return loss.detach()
 
+    def _all_reduce(self, loss: Tensor) -> Tensor:
+        r"""Sums ``loss`` and every gradient (zeros where a rank has none)
+        over the ``'dp'`` axis in one flat bucket; returns the summed loss."""
+
+        params = [p for p in self.module.parameters() if p.requires_grad]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        flat = torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+
+        offset = 1
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return flat[0]
+
+    def _part(self, dataset: TrajectoryDataset, rows: Tensor) -> Tensor:
+        r"""The batch positions this rank computes, of a batch of global row
+        indices ``rows``."""
+
+        if dataset.sharded:
+            held = (rows >= dataset.offset) & (rows < dataset.offset + len(dataset.data))
+            return held.nonzero().squeeze(1)
+        part = torch.arange(len(rows), device=rows.device)
+        if self.mesh is None:
+            return part
+        return batch_constraint(part, self.mesh)
+
     def _pass(self, dataset: TrajectoryDataset, draws: Dict[str, Any], train: bool) -> Tensor:
         idx, num_batches = dataset.epoch_batches(self.batch_size, self.generator, perm=draws.get('perm'))
+        device = dataset.data.device
         losses = []
         for i in range(num_batches):
-            x = dataset.crop(dataset.data[idx[i]], self.generator, starts=_nth(draws, 'starts', i))
-            t, z = _nth(draws, 't', i), _nth(draws, 'z', i)
+            rows, batch = idx[i], len(idx[i])
+            # The whole batch's draws, in the order a single process makes them.
+            starts = _nth(draws, 'starts', i)
+            if starts is None:
+                starts = dataset.draw_starts(batch, self.generator)
+            t = _nth(draws, 't', i)
+            if t is None:
+                t = torch.rand((batch,), generator=self.generator, device=device)
+            z = _nth(draws, 'z', i)
+            if z is None:
+                z = torch.randn((batch,) + dataset.item_shape, generator=self.generator, device=device)
+
+            part = self._part(dataset, rows)
+            x = dataset.data[rows[part] - dataset.offset]
+            x = dataset.crop(x, starts=None if starts is None else starts.to(device)[part])
+            t, z, share = t.to(device)[part], z.to(device)[part], len(part) / batch
             if train:
-                losses.append(self.train_step(x, t, z))
+                losses.append(self._step(x, t, z, share))
             else:
                 with torch.no_grad():
-                    losses.append(self.loss(x, t, z))
+                    loss = self.loss(x, t, z) * share if len(part) else torch.zeros((), device=device)
+                if self.group is not None:
+                    dist.all_reduce(loss, group=self.group)
+                losses.append(loss)
         return torch.stack(losses).mean()
 
     def step_epoch(self) -> Dict[str, float]:

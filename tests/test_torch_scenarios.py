@@ -395,10 +395,14 @@ def test_circle_resimulation_matches_jax():
 
 
 def test_cli_refuses_mesh_and_render():
-    from sda_tpu_torch.experiments.kolmogorov.assimilate import main
+    r"""Rendering is still refused (it waits for ``viz``); ``--mesh`` is parsed
+    as the JAX script parses it (``tests/test_torch_parallel.py`` runs the
+    sharded score it builds)."""
 
-    with pytest.raises(NotImplementedError, match='parallel'):
-        main(mesh='sp=4', device='cpu')
+    from sda_tpu_torch.experiments.kolmogorov.assimilate import main, parse_mesh
+
+    assert parse_mesh('sp=4') == {'sp': 4}
+    assert parse_mesh('dp=2,sp=4') == {'dp': 2, 'sp': 4}
     with pytest.raises(NotImplementedError, match='viz'):
         main(render=True, device='cpu')
 
