@@ -45,6 +45,17 @@ scenario with ``qg_0`` and ``experiments/qg/eval.py``'s generative and
 posterior rows against ``eval.csv``; and the Kolmogorov solver's physics
 gate (``validate_solver``) at 256^2.
 
+Between them, this slice's paths: the main path's posterior drawn and its
+truth written as a GIF by ``sda_tpu_torch.viz``, each file decoded here;
+the main path's analytic FLOPs (``nn.flops``, held to ``FlopCounterMode``
+on one ``unet_0`` window) and their rate over its wall time; the scenarios
+through ``sweep_methods``; ``sweep_solver`` (32 steps, both solvers) and
+``sweep_guidance`` (gamma 0.1) on the truth against the committed CSVs,
+with their own launch counts; ``hbm_probe`` on ``loop`` (127 frames, chunked
+with remat against plain); ``entry()`` against the CPU; the Lorenz
+``sweep_solver`` after the Lorenz evaluation; and the training command's
+``samples.png`` in the NCCL phase.
+
 Last, scale-out (``sda_tpu_torch.parallel``): two ranks on the one card
 over gloo (NCCL refuses two ranks on one device), ``unet_0`` in float32 at
 its published widths, the sequence-parallel guided sample (``loop``, 64
@@ -66,10 +77,12 @@ import argparse
 import contextlib
 import json
 import math
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -78,8 +91,10 @@ import torch.distributed as dist
 
 from sda_tpu_torch import prng
 from sda_tpu_torch.diffusion import VPSDE, GaussianScore, MCScoreNet
-from sda_tpu_torch.dynamics import KolmogorovFlow, QuasiGeostrophic
+from sda_tpu_torch.dynamics import KolmogorovFlow, QuasiGeostrophic, vorticity
+from sda_tpu_torch.entry import entry
 from sda_tpu_torch.experiments.kolmogorov import eval as kolmogorov_eval
+from sda_tpu_torch.experiments.kolmogorov import hbm_probe, sweep_guidance, sweep_methods, sweep_solver
 from sda_tpu_torch.experiments.kolmogorov import validate_solver
 from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, get_scenario, resimulate, scenario_label
 from sda_tpu_torch.experiments.kolmogorov import train as kolmogorov_train
@@ -89,6 +104,7 @@ from sda_tpu_torch.experiments.kolmogorov.utils import load_score, make_chain, m
 from sda_tpu_torch.experiments.lorenz import eval as lorenz_eval
 from sda_tpu_torch.experiments.lorenz import generate as lorenz_generate
 from sda_tpu_torch.experiments.lorenz import multimodal as lorenz_multimodal
+from sda_tpu_torch.experiments.lorenz import sweep_solver as lorenz_sweep
 from sda_tpu_torch.experiments.lorenz import train as lorenz_train
 from sda_tpu_torch.experiments.lorenz import utils as lorenz_utils
 from sda_tpu_torch.experiments.qg import assimilate as qg_assimilate
@@ -96,11 +112,12 @@ from sda_tpu_torch.experiments.qg import eval as qg_eval
 from sda_tpu_torch.experiments.qg import generate as qg_generate
 from sda_tpu_torch.experiments.qg import utils as qg_utils
 from sda_tpu_torch.experiments.qg.train import CONFIG as QG_CONFIG
-from sda_tpu_torch.nn import reset_parameters
+from sda_tpu_torch.nn import guided_sampler_flops, reset_parameters, score_unet_flops
 from sda_tpu_torch.ops import RealDFT2, dft_kernels
 from sda_tpu_torch.parallel import ShardedMCScoreNet, init_multihost, make_mesh
 from sda_tpu_torch.parallel.demo import equal_on_all_ranks, free_port, run_ranks
 from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
+from sda_tpu_torch.viz import draw, save_gif
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32 = 67e12
@@ -154,23 +171,22 @@ LOG_P_SPREADS = 10
 RESULTS = {name: REPO / f'experiments/{name}/storage/results' for name in ('kolmogorov', 'lorenz')}
 LORENZ_INPUTS = REPO / 'tests/golden/lorenz_eval_inputs.npz'
 
-# Kolmogorov scenarios at the published 4 samples x 256 steps x 1 correction:
-# SDA's residual ratio (residual / obs std) within SCENARIO_RTOL of
-# method_sweep.csv's, and DPS's at least DPS_FACTOR times SDA's (committed:
-# 9.9x on subsample_s8). Across the JAX package's own runs of coarse at these
-# settings the ratio spans 1.110-1.139. Two of method_sweep.csv's six
-# non-coarse rows run here: each takes 22-40 s on an H100 80GB HBM3 (launch
-# bound, depending on the host), and the QG path's float32 sampling takes
-# ~300 s. subsample_s8 (which DPS is held against) runs; saturation, which
-# ran until the scale-out phases needed its ~27 s, subsample_7s16, patch,
+# Kolmogorov scenarios through sweep_methods at the published 4 samples x 256
+# steps x 1 correction, SDA and DPS: SDA's residual ratio (residual / obs std)
+# within SCENARIO_RTOL of method_sweep.csv's, and DPS's at least DPS_FACTOR
+# times SDA's (committed: 9.9x on subsample_s8). Across the JAX package's own
+# runs of coarse at these settings the ratio spans 1.110-1.139. One of
+# method_sweep.csv's six non-coarse rows runs here: each takes 22-40 s on an
+# H100 80GB HBM3 (launch bound, depending on the host), and the QG path's
+# float32 sampling takes ~300 s. subsample_s8 runs; saturation, which ran
+# until the scale-out phases needed its ~27 s, subsample_7s16, patch,
 # extrapolate and vorticity are left to the CPU tests (all six have passed on
 # the card at these settings).
 # circle's check is finiteness and its re-simulation, so it samples
-# CIRCLE_STEPS steps, not 256; DPS samples DPS_STEPS (it misfits the
-# observations at any step count: 11x SDA's ratio at 256 steps).
+# CIRCLE_STEPS steps, not 256.
 SCENARIOS = (('subsample', {'stride': 8}),)
 SCENARIO_RTOL, DPS_FACTOR = 0.2, 3.0
-CIRCLE_STEPS, DPS_STEPS = 64, 128
+CIRCLE_STEPS = 64
 SEGMENTED_STEPS, SEGMENTS = 16, 4
 
 # experiments/kolmogorov/eval.py at its defaults against eval.csv's unet_0
@@ -253,13 +269,33 @@ VALIDATE = {'size': 256, 'spinup': 32, 'window': 32, 'ensemble': 4}
 # GPU detected"), so the two ranks talk over gloo, which stages CUDA tensors
 # through the host; they share the card, so their times are no speed
 # figure. sp: unet_0 in float32 on loop at 64 frames (the published 127 is
-# prime; 64 divides by 2 and 4), batch 1, 8 steps x 1 correction, chunks of
-# 8 windows with per-chunk remat, held to the JAX package's own sp parity
-# bound (__graft_entry__.py). dp: 4 AdamW steps of unet_0 in float32 at
-# global batch 32, 16 per rank, held as the card-against-CPU step is.
+# prime; 64 divides by 2 and 4), batch 1, 4 steps x 1 correction (cut from 8
+# for the wall time), chunks of 8 windows with per-chunk remat, held to the
+# JAX package's own sp parity bound (__graft_entry__.py). dp: 4 AdamW steps
+# of unet_0 in float32 at global batch 32, 16 per rank, held as the
+# card-against-CPU step is.
 PARALLEL_RANKS, PARALLEL_DEADLINE = 2, 300
-SP_FRAMES, SP_STEPS, SP_CHUNK, SP_ATOL = 64, 8, 8, 1e-4
+SP_FRAMES, SP_STEPS, SP_CHUNK, SP_ATOL = 64, 4, 8, 1e-4
 DP_STEPS, DP_BATCH = 4, 32
+
+# The sweeps on the main path's truth, with the committed unet_0: both solvers
+# at SOLVER_STEPS with no corrections (solver_sweep.csv: ratio 5.237 / 5.239,
+# spectrum distance 0.3238 / 0.2086) and the guidance row GUIDANCE_ROW at 256
+# steps x GUIDANCE_SAMPLES (guidance_sweep.csv, at 4 samples: ratio 4.186; 2
+# here, for the wall time: 4 took 54.8 s on an H100 80GB HBM3). Each ratio must
+# lie within SWEEP_RTOL of its committed row (the scenarios' bound), dpm2m's
+# spectrum distance below ddim's, and the guidance row's ratio above
+# GUIDANCE_FACTOR times the main path's. The Lorenz sweep (index 0, lo) runs at
+# LORENZ_SWEEP_STEPS; nothing committed holds those rows.
+SOLVER_STEPS, SWEEP_RTOL = 32, 0.2
+GUIDANCE_ROW, GUIDANCE_SAMPLES, GUIDANCE_FACTOR = (1, 0.5, 1e-1), 2, 2.0
+LORENZ_SWEEP_STEPS = 16
+# hbm_probe's loop program (127 frames): chunks of 8 windows with remat at 16
+# samples, 2 steps x 1 correction, against the plain program at 1 sample.
+PROBE = dict(length=127, steps=2, corrections=1)
+PROBE_CHUNKED, PROBE_PLAIN = dict(samples=16, chunk=8, remat=True), dict(samples=1, chunk=None, remat=False)
+# entry() on the card against the same module on the CPU, float32, TF32 off.
+ENTRY_ATOL = 1e-3
 
 T0 = time.perf_counter()
 
@@ -784,40 +820,45 @@ def spectra_kernels(device, batches):
 
 
 def kolmogorov_scenarios(eps, truth, device):
-    r"""SDA on ``SCENARIOS`` (rows of ``method_sweep.csv``) at the published
-    sizes, DPS on ``subsample_s8`` at ``DPS_STEPS`` and ``circle`` with its
-    re-simulation at ``CIRCLE_STEPS``; returns the seconds per run."""
+    r"""``sweep_methods --only`` the labels of ``SCENARIOS`` (rows of
+    ``method_sweep.csv``: SDA and DPS at the published sizes) into a
+    temporary storage, then ``circle`` with its re-simulation at
+    ``CIRCLE_STEPS``; returns the seconds per run."""
 
     sweep = {(row[0], row[1]): float(row[5]) for row in csv_rows(RESULTS['kolmogorov'] / 'method_sweep.csv')}
-    ratios, seconds = {}, {}
+    labels = [scenario_label(scenario, **kwargs) for scenario, kwargs in SCENARIOS]
+    seconds = {}
 
-    def run(scenario, method='sda', steps=STEPS, **kwargs):
-        label = scenario_label(scenario, kwargs.get('stride', 8), kwargs.get('offset', 0))
-        std = get_scenario(scenario, truth, np.random.RandomState(0), **kwargs)[2]
-        (xs, residual), s = timed(lambda: assimilate(
-            eps, truth, samples=SAMPLES, steps=steps, corrections=CORRECTIONS, tau=0.5, seed=0,
-            scenario=scenario, method=method, **kwargs,
-        ))
-        check(bool(torch.isfinite(xs).all()), f'{label}[{method}]: non-finite samples')
-        log(f'  {label}[{method}]: samples {tuple(xs.shape)}, residual {residual:.5f} (obs std {std}), ratio '
-            f'{residual / std:.4f}; {s:.2f}s, {s / steps * 1e3:.1f} ms per step of {steps}')
-        seconds[f'{label}[{method}]'] = s
-        return xs, residual / std
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / 'runs').mkdir()
+        (tmp / 'runs/unet_0').symlink_to(UNET_0)
+        _, s = timed(lambda: sweep_methods.main('unet_0', samples=SAMPLES, steps=STEPS, corrections=CORRECTIONS,
+                                                seed=0, only=','.join(labels), path=tmp, device=device,
+                                                x_test=truth[None]))
+        rows = {(r[0], r[1]): r for r in csv_rows(tmp / 'results/method_sweep.csv')}
+    seconds['sweep_methods'] = s
+    check(sorted(rows) == sorted((label, method) for label in labels for method in ('sda', 'dps')), f'rows {rows}')
+    log(f'  sweep_methods --only {",".join(labels)}: {len(rows)} rows of {SAMPLES} x {STEPS} x {CORRECTIONS} in '
+        f'{s:.2f}s: ' + '; '.join(','.join(r) for r in rows.values()))
 
-    for scenario, kwargs in SCENARIOS:
-        label = scenario_label(scenario, kwargs.get('stride', 8), kwargs.get('offset', 0))
-        _, ratios[label] = run(scenario, **kwargs)
-        want = sweep[(label, 'sda')]
-        gate(f'{label} SDA residual ratio', ratios[label], want, want * (1 - SCENARIO_RTOL),
-             want * (1 + SCENARIO_RTOL))
+    for label in labels:
+        ratio, want = float(rows[(label, 'sda')][5]), sweep[(label, 'sda')]
+        gate(f'{label} SDA residual ratio', ratio, want, want * (1 - SCENARIO_RTOL), want * (1 + SCENARIO_RTOL))
+        dps = float(rows[(label, 'dps')][5])
+        committed = sweep[(label, 'dps')] / want
+        log(f'  {label}: DPS ratio {dps:.4f} = {dps / ratio:.2f}x SDA\'s (committed {committed:.2f}x, '
+            f'bound >= {DPS_FACTOR}x)')
+        check(dps >= DPS_FACTOR * ratio, f'DPS ratio {dps} not {DPS_FACTOR}x SDA\'s')
 
-    _, dps = run('subsample', method='dps', steps=DPS_STEPS, stride=8)
-    committed = sweep[('subsample_s8', 'dps')] / sweep[('subsample_s8', 'sda')]
-    log(f'  subsample_s8: DPS ratio {dps:.4f} = {dps / ratios["subsample_s8"]:.2f}x SDA\'s '
-        f'(committed {committed:.2f}x, bound >= {DPS_FACTOR}x)')
-    check(dps >= DPS_FACTOR * ratios['subsample_s8'], f'DPS ratio {dps} not {DPS_FACTOR}x SDA\'s')
-
-    xs, ratio = run('circle', steps=CIRCLE_STEPS)
+    std = get_scenario('circle', truth, np.random.RandomState(0))[2]
+    (xs, residual), s = timed(lambda: assimilate(eps, truth, samples=SAMPLES, steps=CIRCLE_STEPS,
+                                                 corrections=CORRECTIONS, tau=0.5, seed=0, scenario='circle'))
+    check(bool(torch.isfinite(xs).all()), 'circle: non-finite samples')
+    ratio = residual / std
+    log(f'  circle[sda]: samples {tuple(xs.shape)}, residual {residual:.5f} (obs std {std}), ratio {ratio:.4f}; '
+        f'{s:.2f}s, {s / CIRCLE_STEPS * 1e3:.1f} ms per step of {CIRCLE_STEPS}')
+    seconds['circle'] = s
     (sim, corr), s = timed(lambda: resimulate(xs))
     log(f'  circle: re-simulated {tuple(sim.shape)} at 256^2 in {s:.2f}s; sim-vs-sample correlation {corr:.4f}')
     check(math.isfinite(corr) and math.isfinite(ratio), f'circle: ratio {ratio}, correlation {corr}')
@@ -892,8 +933,9 @@ def kolmogorov_evaluation(score, frames, xs, residual, device):
 def lorenz_evaluation(device):
     r"""``experiments/lorenz/eval.py`` on index 0 at the published sizes:
     the ground truth of ``lo`` and ``hi`` against the committed rows, then
-    the guided rows of ``local_k2_0`` and ``global_0`` on ``lo``. Returns
-    the particle filter's seconds per index."""
+    the guided rows of ``local_k2_0`` and ``global_0`` on ``lo``, and the
+    Lorenz ``sweep_solver`` at ``LORENZ_SWEEP_STEPS`` on the same cached
+    ground truth. Returns the particle filter's seconds per index."""
 
     inputs = np.load(LORENZ_INPUTS)
     stats = ('log_px', 'log_py', 'w1')
@@ -929,6 +971,18 @@ def lorenz_evaluation(device):
             first, last = rows[('0', run, '0')][0], rows[('0', run, str(top))][0]
             check(last > first, f'{run}: log_px does not rise from C = 0 ({first}) to C = {top} ({last})')
 
+        # The solver sweep on the same storage, so on the same cached ground truth.
+        _, s = timed(lambda: lorenz_sweep.main('local_k2_0', True, 0, 1024, (LORENZ_SWEEP_STEPS,), path=tmp,
+                                               runs=LORENZ_RUNS, obs={0: inputs['obs_lo']}, device=device))
+        sweep = csv_rows(Path(tmp) / 'results/solver_sweep.csv')
+        log(f'  lorenz sweep_solver, index 0, lo, {LORENZ_SWEEP_STEPS} steps, 1,024 samples: {s:.2f}s; rows '
+            + '; '.join(','.join(r) for r in sweep))
+        check([r[:4] for r in sweep] == [['0', 'local_k2_0', solver, str(LORENZ_SWEEP_STEPS)]
+                                         for solver in ('ddim', 'dpm2m')], f'sweep rows {sweep}')
+        # Only W1 is gated: at 16 steps some samples leave the attractor, in
+        # the JAX package too, and the mean log-prior of such a set can be nan.
+        check(all(len(r) == 7 and math.isfinite(float(r[6])) for r in sweep), f'sweep rows {sweep}')
+
     w1 = [rows[('0', 'local_k2_0', str(C))][2] for C in LORENZ_CORRECTIONS]
     log(f'  local_k2_0 W1 over C = {LORENZ_CORRECTIONS}: {w1} (must fall strictly)')
     check(all(a > b for a, b in zip(w1, w1[1:])), f'local_k2_0 W1 does not fall with C: {w1}')
@@ -944,7 +998,10 @@ def lorenz_multimodal_demo(device):
     ms per L-BFGS update."""
 
     x_star = np.load(LORENZ_INPUTS)['x'][:49]
-    out, s = timed(lambda: lorenz_multimodal.main(var_starts=VAR_STARTS, device=device, x_star=x_star))
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / 'runs').symlink_to(LORENZ_RUNS)
+        out, s = timed(lambda: lorenz_multimodal.main(var_starts=VAR_STARTS, device=device, x_star=x_star,
+                                                      path=tmp))
     starts = len(out['objective_start'])
     log(f'  {tuple(out["xa"].shape)} samples and {starts} 4D-Var results in {s:.2f}s; '
         f'{len(out["modes"])} distinct modes')
@@ -1404,7 +1461,13 @@ def parallel_nccl(data, truth, device):
                     check(bool(torch.isfinite(w).all()), 'non-finite training sample')
                     run = path / 'runs/unet_0'
                     files = sorted(p.name for p in run.iterdir())
-                    check(files == ['config.json', 'metrics.jsonl', 'state.msgpack'], f'run directory {files}')
+                    check(files == ['config.json', 'metrics.jsonl', 'samples.png', 'state.msgpack'],
+                          f'run directory {files}')
+                    # The training command's sample figure, read back.
+                    image = read_png(run / 'samples.png')
+                    log(f'  samples.png of {tuple(w.shape)} vorticity: {image.shape[1]}x{image.shape[0]}, '
+                        f'equal to draw(): {np.array_equal(image, np.asarray(draw(w.cpu().numpy())))}')
+                    check(np.array_equal(image, np.asarray(draw(w.cpu().numpy()))), 'samples.png differs')
                     runs[use_mesh] = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]
         finally:
             torch.backends.cudnn.deterministic = False
@@ -1441,6 +1504,183 @@ def parallel_nccl(data, truth, device):
         check(err <= bound, f'sharded guided eps differs by {err}')
     finally:
         dist.destroy_process_group()
+
+
+# -- Rendering, FLOPs, the sweeps, the memory probe and entry(). ------------
+
+
+def read_png(path):
+    r"""Decodes a PNG of ``sda_tpu_torch.viz`` with ``zlib`` and ``struct``:
+    the signature, every chunk's CRC, an 8-bit RGB IHDR without interlace,
+    filter 0 on each row. Returns the ``(H, W, 3)`` pixels."""
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b'\x89PNG\r\n\x1a\n', f'{path}: no PNG signature')
+    chunks, pos = [], 8
+    while pos < len(data):
+        length, kind = struct.unpack('>I4s', data[pos: pos + 8])
+        body = data[pos + 8: pos + 8 + length]
+        (crc,) = struct.unpack('>I', data[pos + 8 + length: pos + 12 + length])
+        check(zlib.crc32(kind + body) == crc, f'{path}: bad CRC on {kind}')
+        chunks.append((kind, body))
+        pos += 12 + length
+    check(chunks[0][0] == b'IHDR' and chunks[-1][0] == b'IEND', f'{path}: chunks {[k for k, _ in chunks]}')
+    width, height, *rest = struct.unpack('>IIBBBBB', chunks[0][1])
+    check(rest == [8, 2, 0, 0, 0], f'{path}: IHDR {rest}, not 8-bit RGB')
+    rows = np.frombuffer(zlib.decompress(b''.join(b for k, b in chunks if k == b'IDAT')), np.uint8)
+    rows = rows.reshape(height, 1 + 3 * width)
+    check(bool((rows[:, 0] == 0).all()), f'{path}: a row filter other than 0')
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def gif_frames(path):
+    r"""``(width, height, frames)`` of a GIF89a, walking its blocks."""
+
+    data = Path(path).read_bytes()
+    check(data[:6] == b'GIF89a', f'{path}: no GIF89a header')
+    width, height, packed = struct.unpack('<HHB', data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+
+    def sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    frames = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # an extension: label, then sub-blocks
+            pos = sub_blocks(pos + 2)
+        else:
+            check(data[pos] == 0x2C, f'{path}: unexpected block {data[pos]:#x} at {pos}')
+            frames += 1
+            packed = data[pos + 9]
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos = sub_blocks(pos + 1)  # the LZW minimum code size, then the data
+    return width, height, frames
+
+
+def render_checks(xs, truth):
+    r"""The main path's ``coarse`` posterior drawn as ``assimilate`` renders
+    it and the truth written as a GIF, each read back."""
+
+    with tempfile.TemporaryDirectory() as tmp:
+        w = vorticity(xs[:, ::max(xs.shape[1] // 8, 1)]).cpu().numpy()
+        image = draw(w)
+        t0 = time.perf_counter()
+        image.save(Path(tmp) / 'coarse_unet_0.png')
+        png_s = time.perf_counter() - t0
+        back = read_png(Path(tmp) / 'coarse_unet_0.png')
+        log(f'  coarse posterior {tuple(w.shape)} -> PNG {image.size[0]}x{image.size[1]}, '
+            f'{(Path(tmp) / "coarse_unet_0.png").stat().st_size} bytes in {png_s:.3f}s; decoded equal: '
+            f'{np.array_equal(back, np.asarray(image))}')
+        check(back.shape == (SAMPLES * 68 + 4, w.shape[1] * 68 + 4, 3), f'PNG shape {back.shape}')
+        check(np.array_equal(back, np.asarray(image)), 'the decoded PNG differs from the drawn canvas')
+
+        t0 = time.perf_counter()
+        save_gif(vorticity(truth).cpu().numpy(), Path(tmp) / 'truth.gif', zoom=2)
+        gif_s = time.perf_counter() - t0
+        size = gif_frames(Path(tmp) / 'truth.gif')
+        log(f'  truth GIF: {size[2]} frames of {size[0]}x{size[1]}, {(Path(tmp) / "truth.gif").stat().st_size} '
+            f'bytes in {gif_s:.3f}s')
+        check(size == (128, 128, TRUTH_KEEP), f'GIF {size}')
+
+
+def flop_checks(score, config, assim_s, card, device):
+    r"""The analytic FLOPs of one ``unet_0`` window against
+    ``FlopCounterMode`` on the card, then those of the main path and their
+    rate over the assimilation's wall time. Returns both."""
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sizes = {k: config[k] for k in ('embedding', 'hidden_channels', 'hidden_blocks', 'kernel_size', 'size')}
+    window = score_unet_flops(config['window'] * 2, 1, **sizes)  # the forcing is one context channel
+    x = torch.randn(1, config['window'] * 2, 64, 64, generator=torch.Generator(device=device).manual_seed(9),
+                    device=device)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        score(x, torch.full((1,), 0.5, device=device))
+    log(f'  one unet_0 window forward: FlopCounterMode {counter.get_total_flops():,}, score_unet_flops {window:,}')
+    check(counter.get_total_flops() == window, 'FlopCounterMode and score_unet_flops disagree')
+
+    windows = TRUTH_KEEP - 2 * (config['window'] // 2)
+    total = guided_sampler_flops(window, windows, SAMPLES, STEPS, CORRECTIONS)
+    rate = total / assim_s
+    log(f'  main path: {windows} windows x batch {SAMPLES} x {STEPS} steps x {1 + CORRECTIONS} evaluations x 2 '
+        f'(forward + input VJP) = {total:.6e} FLOPs ({total / 1e15:.4f} PFLOP) in {assim_s:.2f}s: '
+        f'{rate / 1e12:.2f} TFLOP/s on {card}')
+    return total, rate
+
+
+def kolmogorov_sweeps(truth, main_ratio, device):
+    r"""``sweep_solver`` at ``SOLVER_STEPS`` and ``sweep_guidance``'s
+    ``GUIDANCE_ROW`` on the main path's truth, each into a temporary
+    storage, against the committed rows. Returns the seconds of each."""
+
+    committed = {name: csv_rows(RESULTS['kolmogorov'] / f'{name}.csv') for name in ('solver_sweep', 'guidance_sweep')}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / 'runs').mkdir()
+        (tmp / 'runs/unet_0').symlink_to(UNET_0)
+
+        _, solver_s = timed(lambda: sweep_solver.main('unet_0', 'coarse', samples=SAMPLES, seed=0,
+                                                      steps_grid=(SOLVER_STEPS,), path=tmp, device=device,
+                                                      x_test=truth[None]))
+        rows = {r[1]: r for r in csv_rows(tmp / 'results/solver_sweep.csv')}
+        want = {r[1]: r for r in committed['solver_sweep'] if r[0] == 'coarse' and r[2] == str(SOLVER_STEPS)}
+        check(sorted(rows) == ['ddim', 'dpm2m'] and all(len(r) == 9 for r in rows.values()), f'rows {rows}')
+        for solver in ('ddim', 'dpm2m'):
+            ratio, reference = float(rows[solver][6]), float(want[solver][6])
+            gate(f'sweep_solver {solver}, {SOLVER_STEPS} steps, C = 0: residual ratio', ratio, reference,
+                 reference * (1 - SWEEP_RTOL), reference * (1 + SWEEP_RTOL))
+            log(f'  sweep_solver {solver}: spectrum distance {rows[solver][7]} (committed {want[solver][7]}), '
+                f'wall {rows[solver][8]}s; row {",".join(rows[solver])}')
+        check(float(rows['dpm2m'][7]) < float(rows['ddim'][7]),
+              f'dpm2m spectrum distance {rows["dpm2m"][7]} not below ddim\'s {rows["ddim"][7]}')
+
+        _, guidance_s = timed(lambda: sweep_guidance.main('unet_0', 'coarse', samples=GUIDANCE_SAMPLES, steps=STEPS,
+                                                          seed=0, path=tmp, device=device, x_test=truth[None],
+                                                          grid=(GUIDANCE_ROW,)))
+        (row,) = csv_rows(tmp / 'results/guidance_sweep.csv')
+        key = ['coarse', 'unet_0'] + [str(v) for v in GUIDANCE_ROW] + [str(STEPS)]
+        check(row[:6] == key and len(row) == 10, f'guidance row {row}')
+        reference = float(next(r for r in committed['guidance_sweep'] if r[:6] == key)[8])
+        ratio = float(row[8])
+        gate(f'sweep_guidance {GUIDANCE_ROW}, {STEPS} x {GUIDANCE_SAMPLES}: residual ratio', ratio, reference,
+             reference * (1 - SWEEP_RTOL), reference * (1 + SWEEP_RTOL))
+        log(f'  guidance row: spectrum distance {row[9]}; ratio {ratio / main_ratio:.2f}x the main path\'s '
+            f'{main_ratio:.4f} (bound > {GUIDANCE_FACTOR}x); {guidance_s:.2f}s')
+        check(ratio > GUIDANCE_FACTOR * main_ratio, f'guidance ratio {ratio} not {GUIDANCE_FACTOR}x {main_ratio}')
+    return solver_s, guidance_s
+
+
+def memory_probe(device):
+    r"""``hbm_probe`` on ``loop`` (127 frames): chunks of 8 windows with remat
+    at 16 samples against the plain program at 1 sample. Returns the peak
+    GiB per sample of each."""
+
+    peaks = {}
+    for name, config in (('chunked', PROBE_CHUNKED), ('plain', PROBE_PLAIN)):
+        out = hbm_probe.probe('unet_0', **config, **PROBE, path=UNET_0.parents[1], device=device)
+        log(f'  {name}: {json.dumps(out)}')
+        check(out['status'] == 'executed' and out['finite'], f'{name} probe: {out}')
+        peaks[name] = out['peak_memory_gb'] / config['samples']
+    log(f'  peak memory per sample: chunked + remat {peaks["chunked"]:.3f} GiB, plain {peaks["plain"]:.3f} GiB')
+    check(peaks['chunked'] < peaks['plain'], f'chunk + remat does not lower the peak per sample: {peaks}')
+    return peaks
+
+
+def entry_check(device):
+    r"""``entry()`` on the card against the same module on the CPU."""
+
+    fn, (x, t) = entry(device)
+    with torch.no_grad():
+        (out, s) = timed(lambda: fn(x, t))
+        cpu_fn, (cpu_x, cpu_t) = entry('cpu')
+        want = cpu_fn(cpu_x, cpu_t)
+    err = (out.cpu() - want).abs().max().item()
+    log(f'  entry(): {tuple(out.shape)} in {s * 1e3:.1f} ms on the card; max |card - CPU| {err:.3e} '
+        f'(limit {ENTRY_ATOL}), |out| max {want.abs().max().item():.3f}')
+    check(tuple(out.shape) == (2, 10, 64, 64) and bool(torch.isfinite(out).all()), f'entry output {tuple(out.shape)}')
+    check(err <= ENTRY_ATOL, f'entry() on the card differs from the CPU by {err}')
 
 
 def main():
@@ -1544,6 +1784,12 @@ def main():
                 'irfft2': 1 + TRUTH_LENGTH * (3 * chain.steps + 1)}
     check(launches == expected, f'main path launches {launches}, expected {expected}')
 
+    with phase("viz on the card's output"):
+        render_checks(xs, truth[0])
+
+    with phase('flops'):
+        main_flops, main_rate = flop_checks(score, config, assim_s, card, device)
+
     with phase('one transition: kernels vs plain transforms'):
         plain = KolmogorovFlow(SIZE, dt=0.2, dft_method='matmul', device=device)
         x0 = chain.prior((1,), generator=torch.Generator(device=device).manual_seed(1))
@@ -1582,7 +1828,9 @@ def main():
     frames = data.reshape(-1, 2, 64, 64)  # the reference frames: the training data's
 
     with phase('kernels at the spectra shape'):
-        spectra_kernels(device, (1, 64, SAMPLES * TRUTH_KEEP, EVAL_SAMPLES * 5, len(frames)))
+        # The sweeps' batches too: 4 reference frames of the truth and
+        # subsample_s8's 4 x 8 posterior frames.
+        spectra_shape = spectra_kernels(device, (1, 4, 32, 64, SAMPLES * TRUTH_KEEP, EVAL_SAMPLES * 5, len(frames)))
 
     dft_kernels.reset_launches()
 
@@ -1597,10 +1845,27 @@ def main():
 
     eval_launches = dict(dft_kernels.launches)
     # The circle check's solver (the forcing, one to_spectral, 7 transitions)
-    # and 2 spectra (2 forward launches each) of 2 spectrum distances.
-    eval_expected = {'rfft2': 2 + 7 * 3 * chain.steps + 8, 'irfft2': 7 * (3 * chain.steps + 1)}
+    # and 2 spectra (2 forward launches each) of 4 spectrum distances: the
+    # evaluation's 2 and sweep_methods' 2 rows.
+    eval_expected = {'rfft2': 2 + 7 * 3 * chain.steps + 16, 'irfft2': 7 * (3 * chain.steps + 1)}
     log(f'kernel launches on the evaluation path: {eval_launches} (expected {eval_expected})')
     check(eval_launches == eval_expected, f'evaluation path launches {eval_launches}, expected {eval_expected}')
+
+    with phase('sweeps'):
+        dft_kernels.reset_launches()
+        main_ratio = residual / get_scenario('coarse', truth[0], np.random.RandomState(0))[2]
+        solver_s, guidance_s = kolmogorov_sweeps(truth[0], main_ratio, device)
+        sweep_launches = dict(dft_kernels.launches)
+        # 3 rows, each a spectrum distance: 2 spectra of 2 forward launches.
+        sweep_expected = {'rfft2': 3 * 4, 'irfft2': 0}
+        log(f'kernel launches on the sweep path: {sweep_launches} (expected {sweep_expected})')
+        check(sweep_launches == sweep_expected, f'sweep launches {sweep_launches}, expected {sweep_expected}')
+
+    with phase('hbm_probe'):
+        peaks = memory_probe(device)
+
+    with phase('entry'):
+        entry_check(device)
 
     with phase('lorenz evaluation'):
         bpf_s = lorenz_evaluation(device)
@@ -1636,7 +1901,16 @@ def main():
             f'{bpf_s["lo"]:.1f}s (lo), {bpf_s["hi"]:.1f}s (hi) per index; {lbfgs_ms:.2f} ms per L-BFGS update; '
             f'QG data {qg_times["data"]:.1f}s, qg_0 {qg_times["step_ms"]:.1f} ms per training step, QG '
             f'assimilation {qg_times["assimilation"]:.1f}s, QG evaluation {qg_times["evaluation"]:.1f}s, solver '
-            f'gate {qg_times["validation"]:.1f}s; two ranks {parallel_times["ranks"]:.1f}s')
+            f'gate {qg_times["validation"]:.1f}s; two ranks {parallel_times["ranks"]:.1f}s; sweeps: '
+            f'sweep_methods {scenario_s["sweep_methods"]:.1f}s, sweep_solver {solver_s:.1f}s, sweep_guidance '
+            f'{guidance_s:.1f}s; hbm_probe peak per sample {peaks["chunked"]:.3f} GiB chunked, '
+            f'{peaks["plain"]:.3f} GiB plain; main path {main_flops:.6e} FLOPs at {main_rate / 1e12:.2f} TFLOP/s '
+            f'on {card}')
+        batches = (1, 4, 32, SAMPLES * TRUTH_KEEP, len(frames))
+        spectra_rows = {name: {n: spectra_shape[n][name] for n in batches} for name in ('rfft2', 'irfft2')}
+        log('kernels at the spectra shape (64^2, every mode; launches on the sweep path): ' + json.dumps(
+            {'launches': sweep_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in batches},
+             'kernels': spectra_rows}))
         qg_rows = {name: {n: qg_shape[n][name] for n in QG_BATCHES} for name in ('rfft2', 'irfft2')}
         log('kernels at the QG shape (128^2, 43 modes; launches on the QG data path): ' + json.dumps(
             {'launches': qg_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in QG_BATCHES},

@@ -26,13 +26,16 @@ values at 64^2):
 ``sp`` ranks of a ``torchrun`` launch; every rank draws the same samples,
 which equal the run without a mesh, and ``dp`` only shapes the mesh. The
 command line reads ``storage/{data}/test.h5`` (``h5py``) and the run's
-weights; :func:`assimilate` takes a score and a reference trajectory.
+weights, and renders the posterior's vorticity to
+``results/{label}_{run}.png`` unless ``--no-render``; :func:`assimilate`
+takes a score and a reference trajectory.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -43,7 +46,7 @@ from ...diffusion import VPSDE, DPSGaussianScore, GaussianScore
 from ...dynamics import coarsen, upsample, vorticity
 from ...parallel import make_mesh
 from ...utils import resolve_device
-from .utils import PATH, load_score, make_chain, make_trajectory_eps
+from .utils import PATH, draw, load_score, make_chain, make_trajectory_eps
 
 Tensor = torch.Tensor
 Scenario = Tuple[Callable[[Tensor], Tensor], Tensor, float, int, float]
@@ -263,7 +266,7 @@ def main(
     corrections: int = 1,
     tau: float = 0.5,
     seed: int = 0,
-    render: bool = False,
+    render: bool = True,
     chunk: Optional[int] = None,
     remat: bool = False,
     method: str = 'sda',
@@ -278,16 +281,15 @@ def main(
     data: str = 'data',
     segments: int = 1,
     device: Union[str, torch.device] = 'cuda',
+    path: Path = PATH,
+    x_test=None,
 ) -> Optional[Tuple[float, float, Tensor]]:
-    r"""Assimilates test trajectory ``seed`` with the committed run ``run``
+    r"""Assimilates test trajectory ``seed`` with the run ``{path}/runs/{run}``
     as the JAX experiment's ``assimilate`` does; returns ``(residual, std,
     samples)``, or ``None`` on a rank outside the ``mesh``. ``bf16=None``
-    follows the run's config."""
-
-    if render:
-        raise NotImplementedError('rendering waits for the port of sda_tpu/viz; use --save')
-
-    from ...train import load_h5
+    follows the run's config. ``x_test`` holds the test trajectories
+    ``(N, L, 2, H, W)`` (default: ``{path}/{data}/test.h5``). Results go
+    under ``{path}/results``."""
 
     if mesh is not None:
         mesh = make_mesh(parse_mesh(mesh), device)
@@ -296,11 +298,15 @@ def main(
     lead = not dist.is_initialized() or dist.get_rank() == 0
 
     device = resolve_device(device)
-    x_test = load_h5(PATH / f'{data}/test.h5')
-    x_star = torch.from_numpy(np.asarray(x_test[seed % len(x_test)], np.float32)).to(device)
+    path = Path(path)
+    if x_test is None:
+        from ...train import load_h5
+
+        x_test = load_h5(path / f'{data}/test.h5')
+    x_star = torch.as_tensor(x_test[seed % len(x_test)], dtype=torch.float32, device=device)
 
     override = {} if bf16 is None else {'bf16': bf16}
-    module, config = load_score(PATH / f'runs/{run}', device=device, **override)
+    module, config = load_score(path / f'runs/{run}', device=device, **override)
     score = make_trajectory_eps(module, config.get('window', 5), chunk=chunk, remat=remat, mesh=mesh)
 
     t0 = time.perf_counter()
@@ -315,16 +321,28 @@ def main(
         print(f'{label}[{method}]: residual std = {residual:.4f} (obs std = {std}) '
               f'in {time.perf_counter() - t0:.1f}s')
 
+    suffix = '' if method == 'sda' else f'_{method}'
     if save and lead:
-        suffix = '' if method == 'sda' else f'_{method}'
-        out = PATH / f'results/samples_{label}_{run}{suffix}.npz'
+        out = path / f'results/samples_{label}_{run}{suffix}.npz'
         out.parent.mkdir(parents=True, exist_ok=True)
         np.savez_compressed(out, xs=xs.float().cpu().numpy(), x_star=x_star[:xs.shape[1]].cpu().numpy())
         print(f'saved {out}')
 
+    if render and lead:
+        w = vorticity(xs[:, ::max(xs.shape[1] // 8, 1)]).cpu().numpy()
+        out = path / f'results/{label}_{run}{suffix}.png'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        draw(w).save(out)
+        print(f'rendered {out}')
+
     if scenario == 'circle' and lead:
-        _, corr = resimulate(xs)
+        sim, corr = resimulate(xs)
         print(f'circle: sim-vs-sample correlation = {corr:.4f}')
+
+        if render:
+            out = path / f'results/circle_sim_{run}.png'
+            draw(vorticity(torch.stack([xs[0], sim])).cpu().numpy()).save(out)
+            print(f'rendered {out} (row 0: sampled, row 1: re-simulated)')
 
     return residual, std, xs
 
@@ -347,7 +365,7 @@ if __name__ == '__main__':
                         help="sequence-parallel mesh, e.g. 'sp=4' (trajectory length must divide by sp, "
                              'each shard must hold a window)')
     parser.add_argument('--length', type=int, default=None, help='loop scenario: trajectory length')
-    parser.add_argument('--render', action='store_true', help='refused: waits for the port of sda_tpu/viz')
+    parser.add_argument('--no-render', dest='render', action='store_false', default=True)
     parser.add_argument('--save', action='store_true', help='save posterior samples + truth to results/*.npz')
     parser.add_argument('--solver', default='ddim', choices=['ddim', 'dpm2m'])
     parser.add_argument('--bf16', dest='bf16', action='store_true', default=None)

@@ -4,7 +4,8 @@ r"""Kolmogorov score training: the windowed U-Net kernel.
 Counterpart of ``experiments/kolmogorov/train.py``: the same config (window
 5, U-Net (96, 192, 384) x (3, 3, 3), 4096 epochs, batch 32, AdamW 2e-4,
 linear decay), trained on flattened 5-frame windows of the 64^2 dataset, a
-resumable checkpoint every 64 epochs and a final 2-sample sanity draw.
+resumable checkpoint every 64 epochs and a final 2-sample sanity draw,
+rendered to ``runs/<run>/samples.png``.
 
     python -m sda_tpu_torch.experiments.kolmogorov.train --seed 0 [--bf16] [--resume] [--device cpu]
     torchrun --nproc_per_node 8 -m sda_tpu_torch.experiments.kolmogorov.train --seed 0 --mesh
@@ -33,7 +34,7 @@ from ...nn import reset_parameters
 from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
 from ...utils import resolve_device, save_config
-from .utils import PATH, make_score
+from .utils import PATH, draw, make_score
 
 CONFIG = {
     # Architecture
@@ -131,6 +132,7 @@ def train(
     with torch.no_grad():
         x = VPSDE(eps=module, shape=(window * 2, size, size)).sample((2,), steps=64, generator=generator)
     w = vorticity(x.reshape(2, -1, 2, size, size))
+    draw(w.cpu().numpy()).save(runpath / 'samples.png')
 
     logger.finish()
     print(f'{name}: done, sample vorticity std {float(w.std()):.3f}')

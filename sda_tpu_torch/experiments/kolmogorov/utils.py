@@ -1,7 +1,8 @@
 r"""Kolmogorov experiment factories.
 
 Counterpart of ``experiments/kolmogorov/utils.py`` (``make_chain``,
-``make_score``, ``load_score`` and ``make_trajectory_eps``).
+``make_score``, ``load_score`` and ``make_trajectory_eps``, and the
+rendering helpers of :mod:`sda_tpu_torch.viz`, re-exported).
 The committed runs under ``experiments/kolmogorov/storage/runs`` are read
 with the port's own msgpack reader; their weights are converted in memory.
 """
@@ -20,6 +21,7 @@ from ...parallel import ShardedMCScoreNet
 from ...parallel.mesh import axis_size
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
+from ...viz import draw, sandwich, save_gif, vorticity2rgb  # noqa: F401
 
 #: The JAX experiment's storage, which holds the committed runs, or
 #: ``$SCRATCH/sda_tpu/kolmogorov`` where ``SCRATCH`` is set, as in the JAX pack.
@@ -91,3 +93,12 @@ def make_trajectory_eps(
         return ShardedMCScoreNet(module, order=window // 2, mesh=mesh, chunk=chunk, remat=remat)
 
     return MCScoreNet(module, order=window // 2, chunk=chunk, remat=remat)
+
+
+def reference_frames(x_test, device: Union[str, torch.device]) -> torch.Tensor:
+    r"""Every 8th frame of each test trajectory ``(N, L, 2, H, W)``, as
+    ``(N L / 8, 2, H, W)`` on ``device``: the sweeps' reference ensemble
+    for the spectrum distance."""
+
+    x = torch.as_tensor(x_test[:, ::8], dtype=torch.float32, device=device)
+    return x.reshape((-1,) + tuple(x.shape[-3:]))

@@ -18,8 +18,10 @@ violation:
 
 The transforms go through the solver's ``RealDFT2``, so on the card through
 the CUDA DFT kernels. The JSON report goes to
-``storage/results/solver_validation.json``; where the JAX script draws
-figures, this one prints the spectrum.
+``storage/results/solver_validation.json``, the last field's vorticity to
+``results/vorticity_sample.png``, and, where matplotlib is installed, the
+spectrum and the energy history to ``results/solver_validation.png``; the
+spectrum is printed too.
 
     python -m sda_tpu_torch.experiments.kolmogorov.validate_solver [--size 256] [--spinup 64] [--window 64] [--device cpu]
 """
@@ -34,9 +36,10 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ...dynamics import KolmogorovFlow
+from ...dynamics import KolmogorovFlow, vorticity
 from ...utils import resolve_device
-from .utils import PATH, make_chain
+from ...viz import RGBImage
+from .utils import PATH, make_chain, vorticity2rgb
 
 Tensor = torch.Tensor
 
@@ -137,6 +140,27 @@ def main(
     out.write_text(json.dumps(report, indent=2))
     print(json.dumps(report, indent=2))
     print('energy spectrum E(k), k = 1..16: ' + ' '.join(f'{e:.3e}' for e in spectrum[:16]))
+
+    try:
+        import matplotlib
+
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(1, 2, figsize=(10, 4))
+        axes[0].loglog(centers, spectrum)
+        axes[0].axvline(4, ls='--', c='grey')
+        axes[0].set(xlabel='k', ylabel='E(k)', title='energy spectrum')
+        axes[1].plot(energy.mean(axis=1))
+        axes[1].set(xlabel='step', ylabel='energy', title='energy history')
+        fig.tight_layout()
+        fig.savefig(out.parent / 'solver_validation.png', dpi=120)
+    except Exception as err:
+        print(f'figures skipped: {err}')
+
+    w = vorticity(xs[-1, 0]).cpu().numpy()
+    scale = float(np.abs(w).max())
+    RGBImage(vorticity2rgb(w, vmin=-scale, vmax=scale)).save(out.parent / 'vorticity_sample.png')
 
     if not report['passed']:
         failed = [name for name, ok in checks.items() if not ok]

@@ -7,8 +7,8 @@ that the posterior has several modes. Guided sampling covers them in one
 batch; weak 4D-Var (L-BFGS) converges to one mode per start and is run from
 ``var_starts`` sampled trajectories, whose results are counted as distinct
 modes when their squared distance is at least 10. Prints the
-posterior-consistency residual and the mode count (the figure waits for the
-port of ``sda_tpu/viz``).
+posterior-consistency residual and the mode count, and draws the samples and
+modes to ``results/multimodal_<run>.png`` where matplotlib is installed.
 
     python -m sda_tpu_torch.experiments.lorenz.multimodal [--device cpu]
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -42,10 +43,12 @@ def main(
     device: Union[str, torch.device] = 'cuda',
     x_star: Optional[np.ndarray] = None,
     draws: Optional[Tuple[Tensor, Callable[[int, int], Tensor]]] = None,
+    path: Path = PATH,
 ) -> dict:
-    r"""Runs the demo; returns the samples ``xa``, the 4D-Var results ``xb``,
-    the objective at each start and at its result, the kept modes, the
-    residual and the seconds the 4D-Var runs took. ``x_star`` defaults to test trajectory 0 (first 49 frames);
+    r"""Runs the demo on ``{path}/runs/{run}``; returns the samples ``xa``,
+    the 4D-Var results ``xb``, the objective at each start and at its
+    result, the kept modes, the residual and the seconds the 4D-Var runs
+    took. ``x_star`` defaults to test trajectory 0 (first 49 frames);
     ``draws`` may give the sampler's ``(init, noise)``, otherwise they come
     from a generator seeded with ``seed``."""
 
@@ -56,7 +59,7 @@ def main(
     if x_star is None:
         from ...train import load_h5
 
-        x_star = load_h5(PATH / 'data/test.h5')[0, :49]
+        x_star = load_h5(Path(path) / 'data/test.h5')[0, :49]
     y_star = torch.as_tensor(rng.normal(x_star[::4, 2:], 0.1), dtype=torch.float32, device=device)
 
     sigma, step = 0.1, 4
@@ -64,7 +67,7 @@ def main(
     def A_raw(x):
         return chain.preprocess(x)[..., 2:]
 
-    module, config = load_score(PATH / f'runs/{run}', local=local, device=device)
+    module, config = load_score(Path(path) / f'runs/{run}', local=local, device=device)
     score = make_trajectory_eps(module, local, config.get('window', 5))
 
     sde = VPSDE(
@@ -101,10 +104,34 @@ def main(
         if all(float(d2[i, j]) >= 10.0 for j in keep):
             keep.append(i)
     print(f'weak 4D-Var found {len(keep)} distinct modes from {var_starts} starts')
-    print('figure skipped: the port has no viz yet')
+    modes = xb[keep]
+    xa_np, modes_np = xa.cpu().numpy(), modes.cpu().numpy()
+
+    try:
+        import matplotlib
+
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+
+        fig, axs = plt.subplots(1, 3, sharey=True, figsize=(7, 3))
+        t_axis = np.arange(1, 50)
+        for i, ax in enumerate(axs):
+            ax.plot(xa_np[:, :, i].T, t_axis, color='C0', lw=0.5, alpha=0.08)
+            for j in range(min(len(modes_np), 6)):
+                ax.plot(modes_np[j, :, i], t_axis, lw=0.9, ls='--', color=plt.cm.viridis(0.5 + 0.08 * j))
+            ax.set_xlabel('abc'[i])
+            ax.grid(alpha=0.3)
+        axs[0].set_ylabel('frame')
+        fig.tight_layout()
+        out = Path(path) / f'results/multimodal_{run}.png'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fig.savefig(out, dpi=130)
+        print(f'figure -> {out}')
+    except Exception as err:
+        print(f'figure skipped: {err}')
 
     return {'xa': xa, 'xb': xb, 'objective_start': j_start, 'objective_end': j_end,
-            'modes': xb[keep], 'residual': residual, 'var_seconds': var_seconds}
+            'modes': modes, 'residual': residual, 'var_seconds': var_seconds}
 
 
 if __name__ == '__main__':

@@ -14,7 +14,9 @@ dynamical coupling. Scenarios:
     python -m sda_tpu_torch.experiments.qg.assimilate --run qg_0 --scenario upper [--device cpu]
 
 The command line reads ``storage/data/test.h5`` (``h5py``) and the run's
-weights; :func:`assimilate` takes a score and a reference trajectory.
+weights, and renders the first sample's two layers to
+``results/{scenario}_{run}.png`` unless ``--no-render``; :func:`assimilate`
+takes a score and a reference trajectory.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ...diffusion import VPSDE, GaussianScore
 from ...dynamics import coarsen
 from ...utils import resolve_device
-from .utils import PATH, load_score, make_trajectory_eps
+from .utils import PATH, draw, load_score, make_trajectory_eps
 
 Tensor = torch.Tensor
 Scenario = Tuple[Callable[[Tensor], Tensor], Tensor, float, int, float]
@@ -128,14 +130,11 @@ def main(
     corrections: int = 1,
     tau: float = 0.5,
     seed: int = 0,
-    render: bool = False,
+    render: bool = True,
     device: Union[str, torch.device] = 'cuda',
 ) -> Tuple[float, float]:
     r"""Assimilates test trajectory ``seed`` with the run ``run`` as the JAX
     experiment's ``assimilate`` does; returns ``(residual, std)``."""
-
-    if render:
-        raise NotImplementedError('rendering waits for the port of sda_tpu/viz')
 
     from ...train import load_h5
 
@@ -146,9 +145,18 @@ def main(
     module, config = load_score(PATH / f'runs/{run}', device=device)
     score = make_trajectory_eps(module, config.get('window', 5))
 
-    _, residual, _ = assimilate(
+    xs, residual, _ = assimilate(
         score, x_star, scenario, samples=samples, steps=steps, corrections=corrections, tau=tau, seed=seed,
     )
+
+    if render:
+        # The first sample's frames, a row per layer, on a symmetric scale.
+        w = xs[0, ::max(xs.shape[1] // 8, 1)].cpu().numpy()
+        scale = float(np.abs(w).max())
+        out = PATH / f'results/{scenario}_{run}.png'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        draw(np.swapaxes(w, 0, 1), vmin=-scale, vmax=scale).save(out)
+        print(f'rendered {out}')
 
     return residual, OBS_STD
 
@@ -162,7 +170,7 @@ if __name__ == '__main__':
     parser.add_argument('--corrections', type=int, default=1)
     parser.add_argument('--tau', type=float, default=0.5)
     parser.add_argument('--seed', type=int, default=0)
-    parser.add_argument('--render', action='store_true', help='refused: waits for the port of sda_tpu/viz')
+    parser.add_argument('--no-render', dest='render', action='store_false', default=True)
     parser.add_argument('--device', type=str, default='cuda')
     args = parser.parse_args()
 

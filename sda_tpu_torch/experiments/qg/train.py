@@ -6,7 +6,7 @@ U-Net (96, 192, 384) x (3, 3, 3), batch 32, AdamW 2e-4, linear decay) on
 flattened 5-frame windows of the standardised 64^2 dataset, with a plain
 circular ScoreUNet (no forcing channel), a resumable checkpoint and a
 weights snapshot every 64 epochs, and a final 2-sample sanity draw whose
-statistics are printed (the JAX pack renders them).
+last frame is rendered, both layers, to ``runs/qg_<seed>/samples.png``.
 
     python -m sda_tpu_torch.experiments.qg.train --seed 0 [--epochs N] [--resume] [--device cpu]
     torchrun --nproc_per_node 8 -m sda_tpu_torch.experiments.qg.train --seed 0 --mesh
@@ -26,6 +26,7 @@ import argparse
 from pathlib import Path
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -33,7 +34,7 @@ from ...diffusion import VPSDE
 from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
 from ...utils import resolve_device, save_config
-from .utils import PATH, init_score, make_score
+from .utils import PATH, draw, init_score, make_score
 
 CONFIG = {
     'window': 5,
@@ -125,6 +126,9 @@ def train(
     top, bottom = x[:, -1, 0], x[:, -1, 1]
     print(f'sample, last frame: PV std {float(top.std()):.3f} (top), {float(bottom.std()):.3f} (bottom), '
           f'|PV| max {float(x[:, -1].abs().max()):.3f}')
+    w = x[:, -1].cpu().numpy()
+    scale = float(np.abs(w).max())
+    draw(w, vmin=-scale, vmax=scale).save(runpath / 'samples.png')
 
     logger.finish()
     print(f'qg_{seed}: done')

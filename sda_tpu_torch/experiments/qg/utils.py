@@ -1,7 +1,8 @@
 r"""Quasi-geostrophic experiment factories.
 
 Counterpart of ``experiments/qg/utils.py`` (``make_chain``, ``make_score``,
-``init_score``, ``load_score`` and ``make_trajectory_eps``).
+``init_score``, ``load_score`` and ``make_trajectory_eps``, and the
+rendering helpers of :mod:`sda_tpu_torch.viz`, re-exported).
 States are two-layer potential-vorticity fields ``(L, 2, H, W)``; the window
 kernel is a plain circular :class:`ScoreUNet` over ``window * 2`` channels,
 with no forcing channel (the beta-plane background is homogeneous). The
@@ -24,6 +25,7 @@ from ...parallel import ShardedMCScoreNet
 from ...parallel.mesh import axis_size
 from ...train import load_params, params_from_flax
 from ...utils import ACTIVATIONS, load_config, resolve_device
+from ...viz import draw, sandwich, save_gif, vorticity2rgb  # noqa: F401
 
 #: The JAX experiment's storage, which holds the committed runs, or
 #: ``$SCRATCH/sda_tpu/qg`` where ``SCRATCH`` is set, as in the JAX pack.

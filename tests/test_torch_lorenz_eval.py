@@ -217,7 +217,7 @@ def test_multimodal_matches_jax(tmp_path, monkeypatch):
 
     x_star = np.load(INPUTS)['x'][:49]
     got = multimodal.main(samples=8, steps=8, corrections=2, var_starts=2, device='cpu', x_star=x_star,
-                          draws=jax_noise(jax.random.key(0), (8, 49, 3)))
+                          draws=jax_noise(jax.random.key(0), (8, 49, 3)), path=tmp_path)
 
     np.testing.assert_allclose(got['residual'], want_residual, rtol=1e-3, atol=1e-4)
     assert len(got['modes']) == want_modes

@@ -24,6 +24,7 @@ The JAX samplers run compiled, with ``VPSDE.sigma`` written
 """
 
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -34,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from sda_tpu.diffusion import VPSDE as JVPSDE
 from sda_tpu.diffusion import GaussianScore as JGaussianScore
@@ -54,6 +56,7 @@ from sda_tpu_torch.experiments.qg.generate import generate
 from sda_tpu_torch.experiments.qg.generate import main as generate_main
 from sda_tpu_torch.experiments.qg.utils import load_score, make_score, make_trajectory_eps
 from sda_tpu_torch.train import params_from_flax
+from sda_tpu_torch.viz import draw
 
 REPO = Path(__file__).resolve().parents[1]
 QG_PACK = REPO / 'experiments/qg'
@@ -334,13 +337,17 @@ def test_assimilate_matches_jax(nets, name):
 
 
 def test_cli_refusals():
-    r"""Rendering is still refused (it waits for ``viz``); a mesh no longer is:
-    without one, or without an ``'sp'`` axis, the score is the plain
-    ``MCScoreNet`` (``tests/test_torch_parallel.py`` runs the sharded one),
-    and ``train --mesh`` is an option of the command line."""
+    r"""Nothing is refused any more: ``assimilate`` renders by default and
+    takes the JAX pack's ``--no-render`` (``tests/test_torch_figures.py``
+    holds the rendering); without a mesh, or without an ``'sp'`` axis, the
+    score is the plain ``MCScoreNet`` (``tests/test_torch_parallel.py`` runs
+    the sharded one), and ``train --mesh`` is an option of the command
+    line."""
 
-    with pytest.raises(NotImplementedError, match='viz'):
-        assimilate_main(render=True, device='cpu')
+    assert inspect.signature(assimilate_main).parameters['render'].default is True
+    done = subprocess.run([sys.executable, '-m', 'sda_tpu_torch.experiments.qg.assimilate', '--help'],
+                          cwd=REPO, capture_output=True, text=True)
+    assert done.returncode == 0 and '--no-render' in done.stdout and 'refused' not in done.stdout
     score = make_trajectory_eps(make_score(**NARROW), window=5, chunk=4, mesh=None)
     assert type(score).__name__ == 'MCScoreNet' and score.chunk == 4
 
@@ -434,6 +441,10 @@ def test_train_entry_point(tmp_path, monkeypatch):
     assert x.shape == (2, 5, 2, 8, 8) and torch.isfinite(x).all()
 
     run = tmp_path / 'runs/qg_0'
+    w = x[:, -1].numpy()  # the last frame, both layers, on a symmetric scale
+    scale = float(np.abs(w).max())
+    with Image.open(run / 'samples.png') as png:
+        np.testing.assert_array_equal(np.asarray(png), np.asarray(draw(w, vmin=-scale, vmax=scale)))
     config = json.loads((run / 'config.json').read_text())
     assert config == {**json.loads(json.dumps(CONFIG)), 'epochs': 2}
     records = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]

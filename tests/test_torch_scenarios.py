@@ -395,16 +395,22 @@ def test_circle_resimulation_matches_jax():
 
 
 def test_cli_refuses_mesh_and_render():
-    r"""Rendering is still refused (it waits for ``viz``); ``--mesh`` is parsed
-    as the JAX script parses it (``tests/test_torch_parallel.py`` runs the
-    sharded score it builds)."""
+    r"""Neither is refused any more: ``--mesh`` is parsed as the JAX script
+    parses it (``tests/test_torch_parallel.py`` runs the sharded score it
+    builds), and ``main`` renders by default with the JAX pack's
+    ``--no-render`` (``tests/test_torch_figures.py`` holds the rendering)."""
+
+    import inspect
+    import subprocess
 
     from sda_tpu_torch.experiments.kolmogorov.assimilate import main, parse_mesh
 
     assert parse_mesh('sp=4') == {'sp': 4}
     assert parse_mesh('dp=2,sp=4') == {'dp': 2, 'sp': 4}
-    with pytest.raises(NotImplementedError, match='viz'):
-        main(render=True, device='cpu')
+    assert inspect.signature(main).parameters['render'].default is True
+    done = subprocess.run([sys.executable, '-m', 'sda_tpu_torch.experiments.kolmogorov.assimilate', '--help'],
+                          cwd=REPO, capture_output=True, text=True)
+    assert done.returncode == 0 and '--no-render' in done.stdout and 'refused' not in done.stdout
 
 
 # -- Evaluation ---------------------------------------------------------------

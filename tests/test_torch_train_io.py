@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from flax import serialization
+from PIL import Image
 from test_torch_train import MODELS, event_shape, flat, init_both
 
 from sda_tpu.train import RunLogger as JRunLogger
@@ -39,6 +40,7 @@ from sda_tpu_torch.train import (
 )
 from sda_tpu_torch.train import checkpoint as ck
 from sda_tpu_torch.utils import random_config, save_config
+from sda_tpu_torch.viz import draw
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -224,6 +226,8 @@ def test_kolmogorov_train_entry_point(tmp_path, monkeypatch):
     assert w.shape == (2, 5, 8, 8) and torch.isfinite(w).all()
 
     run = tmp_path / 'runs/unet8_0'  # runs beyond 64^2 are named by their size
+    with Image.open(run / 'samples.png') as png:
+        np.testing.assert_array_equal(np.asarray(png), np.asarray(draw(w.numpy())))
     config = json.loads((run / 'config.json').read_text())
     assert config == {**json.loads(json.dumps(CONFIG)), 'epochs': 2, 'bf16': True, 'size': 8}
     records = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]
@@ -261,7 +265,8 @@ def test_lorenz_train_entry_point(tmp_path, monkeypatch):
 
 def test_port_imports_no_jax():
     r"""The port imports no JAX, flax, optax, msgpack, h5py or ``sda_tpu``
-    at any depth, its experiment modules included."""
+    at any depth, its experiment modules included, and no PIL, seaborn or
+    matplotlib (the card's machine has none of them)."""
 
     modules = [
         'sda_tpu_torch.' + m for m in (
@@ -274,6 +279,9 @@ def test_port_imports_no_jax():
             'experiments.lorenz.eval', 'experiments.lorenz.multimodal',
             'experiments.qg.utils', 'experiments.qg.generate', 'experiments.qg.train',
             'experiments.qg.assimilate', 'experiments.qg.eval',
+            'viz', 'entry', 'nn.flops', 'experiments.kolmogorov.figures', 'experiments.kolmogorov.sweep_methods',
+            'experiments.kolmogorov.sweep_guidance', 'experiments.kolmogorov.sweep_solver',
+            'experiments.kolmogorov.hbm_probe', 'experiments.lorenz.figures', 'experiments.lorenz.sweep_solver',
         )
     ]
     code = (
@@ -283,5 +291,5 @@ def test_port_imports_no_jax():
     )
     done = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True, check=True)
     loaded = json.loads(done.stdout)
-    banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'sda_tpu')
+    banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'sda_tpu', 'PIL', 'seaborn', 'matplotlib')
     assert not [m for m in loaded if m.split('.')[0] in banned]
