@@ -45,16 +45,27 @@ scenario with ``qg_0`` and ``experiments/qg/eval.py``'s generative and
 posterior rows against ``eval.csv``; and the Kolmogorov solver's physics
 gate (``validate_solver``) at 256^2.
 
-Between them, this slice's paths: the main path's posterior drawn and its
-truth written as a GIF by ``sda_tpu_torch.viz``, each file decoded here;
+Between them, the later slices' paths: the main path's posterior drawn and
+its truth written as a GIF by ``sda_tpu_torch.viz``, each file decoded here;
 the main path's analytic FLOPs (``nn.flops``, held to ``FlopCounterMode``
-on one ``unet_0`` window) and their rate over its wall time; the scenarios
-through ``sweep_methods``; ``sweep_solver`` (32 steps, both solvers) and
-``sweep_guidance`` (gamma 0.1) on the truth against the committed CSVs,
-with their own launch counts; ``hbm_probe`` on ``loop`` (127 frames, chunked
-with remat against plain); ``entry()`` against the CPU; the Lorenz
+on one ``unet_0`` window) and their rate over its wall time;
+``sda_tpu_torch.mfu_attribution``'s four legs on the main path's truth, one
+call of each traced by ``profile_trace``; the scenarios through
+``sweep_methods``; the Kolmogorov test split simulated at its published
+settings, and ``sweep_solver`` (32 steps, both solvers) and
+``sweep_guidance`` (gamma 0.1) on it against the committed CSVs, with their
+own launch counts; ``hbm_probe`` on ``loop`` (127 frames, chunked with
+remat against plain); ``entry()`` against the CPU; the Lorenz
 ``sweep_solver`` after the Lorenz evaluation; and the training command's
 ``samples.png`` in the NCCL phase.
+
+Every phase runs under the float32 precision of the port's command lines
+(``set_float32_precision``: float32 convolutions in TF32, matmuls in
+float32); the comparisons against a float32 reference (kernels against
+their plain versions, transitions against the plain transforms, bf16
+against float32, the card against the CPU, the golden probes of ``qg_0``,
+``entry()``, the scale-out parities) turn TF32 off locally
+(``exact_float32``).
 
 Last, scale-out (``sda_tpu_torch.parallel``): two ranks on the one card
 over gloo (NCCL refuses two ranks on one device), ``unet_0`` in float32 at
@@ -78,7 +89,6 @@ import contextlib
 import json
 import math
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -89,7 +99,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from sda_tpu_torch import prng
+from sda_tpu_torch import mfu_attribution, prng
 from sda_tpu_torch.diffusion import VPSDE, GaussianScore, MCScoreNet
 from sda_tpu_torch.dynamics import KolmogorovFlow, QuasiGeostrophic, vorticity
 from sda_tpu_torch.entry import entry
@@ -98,7 +108,7 @@ from sda_tpu_torch.experiments.kolmogorov import hbm_probe, sweep_guidance, swee
 from sda_tpu_torch.experiments.kolmogorov import validate_solver
 from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, get_scenario, resimulate, scenario_label
 from sda_tpu_torch.experiments.kolmogorov import train as kolmogorov_train
-from sda_tpu_torch.experiments.kolmogorov.generate import simulate
+from sda_tpu_torch.experiments.kolmogorov.generate import simulate, split_bounds
 from sda_tpu_torch.experiments.kolmogorov.train import CONFIG as KOLMOGOROV_CONFIG
 from sda_tpu_torch.experiments.kolmogorov.utils import load_score, make_chain, make_score, make_trajectory_eps
 from sda_tpu_torch.experiments.lorenz import eval as lorenz_eval
@@ -117,6 +127,7 @@ from sda_tpu_torch.ops import RealDFT2, dft_kernels
 from sda_tpu_torch.parallel import ShardedMCScoreNet, init_multihost, make_mesh
 from sda_tpu_torch.parallel.demo import equal_on_all_ranks, free_port, run_ranks
 from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
+from sda_tpu_torch.utils import CONV_TF32, chunk_generator, profile_trace, set_float32_precision
 from sda_tpu_torch.viz import draw, save_gif
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
@@ -260,6 +271,13 @@ QG_RATIO = (1.0, 1.7)
 QG_SPREAD_SKILL = (0.4, 1.3)
 QG_GEN_FACTOR = 2.0
 QG_EVAL_SAMPLES = 8
+# eval.py's index 0 is the port's own test trajectory 0, not the JAX
+# package's, whose committed row is the outlier of the eight (RMSE 0.3078 /
+# 0.7740, spectrum distance 0.6454 against 0.11-0.18 / 0.28-0.44 / 0.15-0.23
+# for indices 1-7). Its RMSEs and spectrum distance are held within
+# QG_MEDIAN_FACTOR of the median of the committed rows 0-7, as upper's ratio
+# is held against their median.
+QG_MEDIAN_FACTOR = 2.0
 
 # The Kolmogorov solver gate at 256^2, cut from the published 64 + 64
 # transitions to what the smoke's wall time allows.
@@ -278,15 +296,29 @@ PARALLEL_RANKS, PARALLEL_DEADLINE = 2, 300
 SP_FRAMES, SP_STEPS, SP_CHUNK, SP_ATOL = 64, 4, 8, 1e-4
 DP_STEPS, DP_BATCH = 4, 32
 
-# The sweeps on the main path's truth, with the committed unet_0: both solvers
-# at SOLVER_STEPS with no corrections (solver_sweep.csv: ratio 5.237 / 5.239,
-# spectrum distance 0.3238 / 0.2086) and the guidance row GUIDANCE_ROW at 256
-# steps x GUIDANCE_SAMPLES (guidance_sweep.csv, at 4 samples: ratio 4.186; 2
-# here, for the wall time: 4 took 54.8 s on an H100 80GB HBM3). Each ratio must
-# lie within SWEEP_RTOL of its committed row (the scenarios' bound), dpm2m's
-# spectrum distance below ddim's, and the guidance row's ratio above
-# GUIDANCE_FACTOR times the main path's. The Lorenz sweep (index 0, lo) runs at
-# LORENZ_SWEEP_STEPS; nothing committed holds those rows.
+# The sweeps on the data the committed rows were computed on: the test split
+# of experiments/kolmogorov/generate.py at its published settings (1,024
+# trajectories of 128 transitions at 256^2, the last 64 kept, coarsened 4x;
+# the test split is trajectories 921-1023, in the last 7 chunks of 16),
+# simulated in memory. Each sweep assimilates its test trajectory 0 and takes
+# every 8th frame of the split as the spectra's reference, as the JAX sweeps
+# do. With the committed unet_0: both solvers at SOLVER_STEPS with no
+# corrections (solver_sweep.csv: ratio 5.237 / 5.239, spectrum distance
+# 0.3238 / 0.2086) and the guidance row GUIDANCE_ROW at 256 steps x
+# GUIDANCE_SAMPLES (guidance_sweep.csv, at 4 samples: ratio 4.186; 2 here, for
+# the wall time: 4 took 54.8 s on an H100 80GB HBM3). Each ratio and both
+# solvers' spectrum distances must lie within SWEEP_RTOL of the committed
+# rows (the scenarios' bound), dpm2m's spectrum distance below ddim's, and
+# the guidance row's ratio above GUIDANCE_FACTOR times the main path's. The
+# Lorenz sweep (index 0, lo) runs at LORENZ_SWEEP_STEPS; nothing committed
+# holds those rows.
+DATA_TRAJECTORIES, DATA_TRANSITIONS, DATA_FRAMES = 1024, 128, 64
+SPLIT = split_bounds(DATA_TRAJECTORIES)['test']
+SPLIT_CHUNKS = range(SPLIT[0] // CHUNK, -(-SPLIT[1] // CHUNK))  # rolled out in one batch of 7 x 16
+SPLIT_FRAMES = (SPLIT[1] - SPLIT[0]) * DATA_FRAMES // 8  # the spectra's reference
+# The solver's batches: the truth's one field, a data chunk, 4 chunks and the
+# test split's 7.
+SOLVER_BATCHES = (1, CHUNK, 4 * CHUNK, len(SPLIT_CHUNKS) * CHUNK)
 SOLVER_STEPS, SWEEP_RTOL = 32, 0.2
 GUIDANCE_ROW, GUIDANCE_SAMPLES, GUIDANCE_FACTOR = (1, 0.5, 1e-1), 2, 2.0
 LORENZ_SWEEP_STEPS = 16
@@ -322,6 +354,29 @@ def check(condition, message):
         raise AssertionError(message)
 
 
+@contextlib.contextmanager
+def exact_float32(deterministic=False):
+    r"""True float32 on the card (both TF32 flags off) and, if asked,
+    cuDNN's deterministic algorithms, for a comparison against a float32
+    reference; restores the command lines' settings after."""
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic or saved[2]
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+
+
+def check_precision():
+    r"""The flags are the command lines' (``set_float32_precision``)."""
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic)
+    check(flags == (CONV_TF32, False, False), f'cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = {flags}')
+
+
 def device_ms(fn, replays=20, calls=20):
     r"""Device time of one call of ``fn``: ``calls`` calls captured in one
     CUDA graph, CUDA events around ``replays`` replays, so no host dispatch
@@ -344,14 +399,6 @@ def device_ms(fn, replays=20, calls=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * calls)
-
-
-def nvidia_smi():
-    done = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60,
-    )
-    return done.stdout.strip().splitlines()[0] if done.returncode == 0 else f'nvidia-smi failed: {done.stderr.strip()}'
 
 
 def dft_bound_ms(n, h, w, kh, fw):
@@ -511,29 +558,31 @@ def profile_transition(chain, n, device):
     device's busy share (kernel time over the transition's wall time, which
     the profiler lengthens) and the five kernels that took most device time."""
 
-    from torch.profiler import ProfilerActivity, profile
-
     x = chain.prior((n,), generator=torch.Generator(device=device).manual_seed(2))
     chain.transition(x)  # warm up
+    profiled(lambda: chain.transition(x), f'N={n}: one transition')
+
+
+def profiled(fn, label, top=5):
+    r"""One call of ``fn`` inside ``profile_trace`` (its trace written to a
+    temporary directory), then ``device_busy`` of that call."""
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as tmp, profile_trace(tmp) as traced:
         t = time.perf_counter()
-        chain.transition(x)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-
-    device_busy(prof, wall_us, f'N={n}: one transition')
+    device_busy(traced.profiler, wall_us, label, top)
 
 
 def device_busy(prof, wall_us, label, top=5):
     r"""Logs the device's busy share of a profiled window, the ``top``
     kernels with most device time and the share of convolution and matmul
     kernels (cuDNN's, its FFT-based float32 convolutions included, and
-    cuBLAS's). User annotations on the device timeline (such as the
-    optimizer's step range) span kernels and are left out."""
+    cuBLAS's)."""
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, 'is_user_annotation', False)]
+    kernels = mfu_attribution.device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, 'the profiler saw no device time')
     words = ('conv', 'gemm', 'xmma', 'cutlass', 'sm90', 'cudnn', 'dse::', 'fft2d', 'pointwise_mult_and_sum_complex')
@@ -696,17 +745,8 @@ def full_width_training(trainset, validset, device):
     check(all(math.isfinite(v) for v in losses), 'non-finite training loss')
     check(after < fresh, f'the fixed batch loss did not fall: {fresh} -> {after}')
 
-    from torch.profiler import ProfilerActivity, profile
-
     batches = [window_batch(trainset, g, TRAIN_BATCH) for _ in range(3)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for x in batches:
-            trainer.train_step(x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_busy(prof, wall_us, '3 training steps', top=12)
+    profiled(lambda: [trainer.train_step(x) for x in batches], '3 training steps', top=12)
 
     stats = trainer.step_epoch()
     log(f'one epoch through step_epoch: {stats}')
@@ -897,11 +937,8 @@ def loop_checks(score, truth, device):
     # Segmented sampling must not change the result; the comparison runs with
     # cuDNN's deterministic algorithms so that it sees only the segmentation
     # (the default algorithms gave bitwise equal results too, on the H100).
-    torch.backends.cudnn.deterministic = True
-    try:
+    with exact_float32(deterministic=True):
         (one, s1), (parts, s4) = timed(lambda: sample(1)), timed(lambda: sample(SEGMENTS))
-    finally:
-        torch.backends.cudnn.deterministic = False
     log(f'  subsample_s8, {SEGMENTED_STEPS} steps x 1 correction, deterministic cuDNN algorithms: one run '
         f'{s1:.2f}s, {SEGMENTS} segments {s4:.2f}s, bitwise equal: {torch.equal(one, parts)}')
     check(torch.equal(one, parts), f'segmented sampling differs by {(one - parts).abs().max().item()}')
@@ -1166,18 +1203,10 @@ def qg_assimilation(eps, x_star, device):
     base = x_star[:xs.shape[1], 1].std(correction=0).item()
     gate('upper bottom-layer RMSE (bound: the bottom layer\'s std)', rmse, bottom_median, 0.0, base)
 
-    from torch.profiler import ProfilerActivity, profile
-
     A, y, std, _, gamma = qg_assimilate.get_scenario('upper', x_star, np.random.RandomState(0))
     guided = GaussianScore(y=y, A=A, std=std, sde=VPSDE(eps=eps, shape=()), gamma=gamma)
     tt = torch.tensor(0.5, device=device)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        guided(xs, tt)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_busy(prof, wall_us, f'one guided evaluation of qg_0 on {tuple(xs.shape)}', top=8)
+    profiled(lambda: guided(xs, tt), f'one guided evaluation of qg_0 on {tuple(xs.shape)}', top=8)
     return s
 
 
@@ -1202,10 +1231,14 @@ def qg_evaluation(splits, device):
 
     ratio, top, bottom, spread_skill, post_spec = rows[('posterior', 'qg_0', 'upper', '0')]
     want = [float(v) for v in committed[('posterior', 'qg_0', 'upper', '0')]]
-    log(f'  posterior index 0: rmse top {top:.4f} (committed {want[1]:.4f}), bottom {bottom:.4f} '
-        f'(committed {want[2]:.4f}), spectrum distance {post_spec:.4f} (committed {want[4]:.4f})')
     gate('posterior residual ratio', ratio, want[0], *QG_RATIO)
     gate('posterior spread-skill', spread_skill, want[3], *QG_SPREAD_SKILL)
+    posterior = [[float(v) for v in r] for k, r in committed.items() if k[:3] == ('posterior', 'qg_0', 'upper')]
+    check(len(posterior) == 8, f'{len(posterior)} committed posterior rows of qg_0 upper')
+    for label, value, column in (('rmse top', top, 1), ('rmse bottom', bottom, 2), ('spectrum distance', post_spec, 4)):
+        median = float(np.median([r[column] for r in posterior]))
+        gate(f'posterior index 0 {label} (reference: median of the committed rows 0-7; row 0 {want[column]:.4f})',
+             value, median, median / QG_MEDIAN_FACTOR, median * QG_MEDIAN_FACTOR)
     return s
 
 
@@ -1217,10 +1250,13 @@ def qg_path(device):
     phases' times."""
 
     times = {}
-    with phase('kernels at the qg shape'):
+    check_precision()
+    log(f'the QG phases run under the command lines\' float32 precision: qg_0\'s convolutions in '
+        f'{"TF32" if CONV_TF32 else "float32"}, matmuls in float32')
+    with phase('kernels at the qg shape'), exact_float32():
         shape_results = qg_kernels(device)
 
-    with phase('qg_0 against its golden entry'):
+    with phase('qg_0 against its golden entry'), exact_float32():
         score, config = qg_utils.load_score(QG_RUNS / 'qg_0', device=device)
         check(not config.get('bf16', False), 'qg_0 is a float32 checkpoint')
         golden_probe(score, 'experiments/qg/storage/runs/qg_0', device)
@@ -1233,7 +1269,7 @@ def qg_path(device):
     with phase('qg data'):
         splits, times['data'], launches = qg_data(device)
 
-    with phase('qg transition: kernels vs plain'):
+    with phase('qg transition: kernels vs plain'), exact_float32():
         qg_transition(qg_utils.make_chain(QG_SIZE, device=device), device)
 
     with phase('qg training at full width'):
@@ -1331,9 +1367,12 @@ def parallel_rank(rank, port, out):
     r"""One of the two ranks of ``parallel_two_ranks``: sp then dp, results
     to ``out``."""
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True  # as the references in one process
+    set_float32_precision()
+    with exact_float32(deterministic=True):  # as the references in one process
+        parallel_rank_work(rank, port, out)
+
+
+def parallel_rank_work(rank, port, out):
     device = init_multihost(f'127.0.0.1:{port}', PARALLEL_RANKS, rank, device='cuda', backend='gloo')
     out = Path(out)
 
@@ -1386,11 +1425,8 @@ def parallel_two_ranks(data, device):
     # guidance's input gradient atomically, and two runs in one process then
     # differ by as much as the bound.
     score, _ = load_score(UNET_0, device=device, bf16=False)
-    torch.backends.cudnn.deterministic = True
-    try:
+    with exact_float32(deterministic=True):
         single, single_ms = sp_sample(make_trajectory_eps(score, 5, chunk=SP_CHUNK, remat=True), device)
-    finally:
-        torch.backends.cudnn.deterministic = False
     sp_err = max((r['sample'].to(device) - single).abs().max().item() for r in results)
     log(f'sp={PARALLEL_RANKS}, loop {SP_FRAMES} frames, {SP_STEPS} x 1, float32: max |sharded - single| {sp_err:.3e} '
         f'(limit {SP_ATOL}); |x| max {single.abs().max().item():.3f}; ranks bitwise equal '
@@ -1407,13 +1443,10 @@ def parallel_two_ranks(data, device):
     # whole batch drift apart through Adam's sign-like updates of gradients
     # at float32 noise level; they are logged, not gated.
     got = results[0]
-    torch.backends.cudnn.deterministic = True
-    try:
+    with exact_float32(deterministic=True):
         batches = dp_batches(data.to(device), device)
         whole, grads, first, params, single_dp_ms = dp_steps(batches, device)
         halves, _, _, halves_params, _ = dp_steps(batches, device, halves=True)
-    finally:
-        torch.backends.cudnn.deterministic = False
     loss_err = abs(got['losses'][0] - whole[0]) / abs(whole[0])
     worst, undetermined, total = parameter_rule([got['grads']], [grads], got['first'], first)
     log(f'dp={PARALLEL_RANKS}, AdamW at batch {DP_BATCH} ({DP_BATCH // PARALLEL_RANKS} per rank), float32, first '
@@ -1450,27 +1483,23 @@ def parallel_nccl(data, truth, device):
         runs = {}
         # cuDNN's deterministic algorithms, so that the two runs differ only
         # by the mesh (some weight-gradient algorithms accumulate atomically).
-        torch.backends.cudnn.deterministic = True
-        try:
-            with tempfile.TemporaryDirectory() as tmp:
-                for use_mesh in (True, False):
-                    path = Path(tmp) / f'mesh{use_mesh}'
-                    w = kolmogorov_train.train(0, epochs=2, batch_size=DP_BATCH, device=device, path=path,
-                                               trainset=data[:TRAIN_TRAJ], validset=data[TRAIN_TRAJ:],
-                                               use_mesh=use_mesh)
-                    check(bool(torch.isfinite(w).all()), 'non-finite training sample')
-                    run = path / 'runs/unet_0'
-                    files = sorted(p.name for p in run.iterdir())
-                    check(files == ['config.json', 'metrics.jsonl', 'samples.png', 'state.msgpack'],
-                          f'run directory {files}')
-                    # The training command's sample figure, read back.
-                    image = read_png(run / 'samples.png')
-                    log(f'  samples.png of {tuple(w.shape)} vorticity: {image.shape[1]}x{image.shape[0]}, '
-                        f'equal to draw(): {np.array_equal(image, np.asarray(draw(w.cpu().numpy())))}')
-                    check(np.array_equal(image, np.asarray(draw(w.cpu().numpy()))), 'samples.png differs')
-                    runs[use_mesh] = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]
-        finally:
-            torch.backends.cudnn.deterministic = False
+        with exact_float32(deterministic=True), tempfile.TemporaryDirectory() as tmp:
+            for use_mesh in (True, False):
+                path = Path(tmp) / f'mesh{use_mesh}'
+                w = kolmogorov_train.train(0, epochs=2, batch_size=DP_BATCH, device=device, path=path,
+                                           trainset=data[:TRAIN_TRAJ], validset=data[TRAIN_TRAJ:],
+                                           use_mesh=use_mesh)
+                check(bool(torch.isfinite(w).all()), 'non-finite training sample')
+                run = path / 'runs/unet_0'
+                files = sorted(p.name for p in run.iterdir())
+                check(files == ['config.json', 'metrics.jsonl', 'samples.png', 'state.msgpack'],
+                      f'run directory {files}')
+                # The training command's sample figure, read back.
+                image = read_png(run / 'samples.png')
+                log(f'  samples.png of {tuple(w.shape)} vorticity: {image.shape[1]}x{image.shape[0]}, '
+                    f'equal to draw(): {np.array_equal(image, np.asarray(draw(w.cpu().numpy())))}')
+                check(np.array_equal(image, np.asarray(draw(w.cpu().numpy()))), 'samples.png differs')
+                runs[use_mesh] = [json.loads(line) for line in (run / 'metrics.jsonl').read_text().splitlines()]
         keys = ('loss_train', 'loss_valid')
         log(f'kolmogorov train --mesh, NCCL world 1, 2 steps at batch {DP_BATCH}: '
             f'{[{k: r[k] for k in keys} for r in runs[True]]}; without a mesh: '
@@ -1610,9 +1639,50 @@ def flop_checks(score, config, assim_s, card, device):
     return total, rate
 
 
-def kolmogorov_sweeps(truth, main_ratio, device):
+def test_split(chain, device):
+    r"""The test split of ``generate.py`` at its published settings: the
+    chunks of ``CHUNK`` trajectories that hold it, each chunk's prior noise
+    drawn from its own generator as ``generate --only test`` draws it, rolled
+    out in one batch (which changes only the kernels' cluster size, so the
+    order of their sums). Returns the split and the seconds."""
+
+    noise = torch.cat([torch.randn((CHUNK, 2, chain.size, chain.size), generator=chunk_generator(0, i, device),
+                                   device=device) for i in SPLIT_CHUNKS])
+    xs, s = timed(lambda: simulate(chain, batch=len(noise), length=DATA_TRANSITIONS, keep=DATA_FRAMES,
+                                   coarse=chain.size // 64, noise=noise))
+    return xs[SPLIT[0] - SPLIT_CHUNKS[0] * CHUNK:SPLIT[1] - SPLIT_CHUNKS[0] * CHUNK], s
+
+
+def attribution_checks(score, config, truth, card):
+    r"""``sda_tpu_torch.mfu_attribution`` on the main path's workload and
+    truth, one more call of each leg traced by ``profile_trace``: logs each
+    leg's wall, TFLOP/s, share of peak and the device's busy share (from the
+    profiler's averages), checks that each leg wrote its trace and that the
+    smallest, the window kernel's, holds CUDA kernels. Returns the JSON's
+    fields."""
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, s = timed(lambda: mfu_attribution.attribute(score, config, truth, batch=SAMPLES, trace=tmp))
+        log(f'  {out["workload"]}, {out["dtype"]}, peak {out["peak_tflops"]} TFLOP/s on {card}, {s:.1f}s in all')
+        check(out['workload']['windows'] == (TRUTH_KEEP - 2 * (config['window'] // 2)) * SAMPLES, 'workload')
+        for name, leg in out['legs'].items():
+            (path,) = (Path(tmp) / name).glob('*.pt.trace.json')
+            log(f'  {name}: {leg["wall_ms"]:.3f} ms, {leg["tflops"]:.2f} TFLOP/s, {leg["mfu_pct"]:.2f}% of peak; '
+                f'device busy {leg["busy_pct"]:.1f}% of a traced call ({path.stat().st_size} bytes of trace)')
+            check(all(math.isfinite(leg[k]) and leg[k] > 0 for k in ('wall_ms', 'tflops', 'mfu_pct', 'busy_pct')),
+                  f'{name}: {leg}')
+        (path,) = (Path(tmp) / 'kernel_forward').glob('*.pt.trace.json')
+        kernels = sum(1 for e in json.loads(path.read_text())['traceEvents'] if e.get('cat') == 'kernel')
+        log(f'  the kernel_forward trace holds {kernels} CUDA kernels')
+        check(kernels > 0, 'the kernel_forward trace holds no CUDA kernel')
+    log(f'  efficiencies: windowing {out["windowing_efficiency"]:.4f}, VJP {out["vjp_efficiency"]:.4f}, sampler body '
+        f'{out["sampler_body_efficiency"]:.4f}; conv ceiling {out["conv_ceiling_mfu_pct"]:.2f}% of peak')
+    return out
+
+
+def kolmogorov_sweeps(x_test, main_ratio, device):
     r"""``sweep_solver`` at ``SOLVER_STEPS`` and ``sweep_guidance``'s
-    ``GUIDANCE_ROW`` on the main path's truth, each into a temporary
+    ``GUIDANCE_ROW`` on the test split ``x_test``, each into a temporary
     storage, against the committed rows. Returns the seconds of each."""
 
     committed = {name: csv_rows(RESULTS['kolmogorov'] / f'{name}.csv') for name in ('solver_sweep', 'guidance_sweep')}
@@ -1623,7 +1693,7 @@ def kolmogorov_sweeps(truth, main_ratio, device):
 
         _, solver_s = timed(lambda: sweep_solver.main('unet_0', 'coarse', samples=SAMPLES, seed=0,
                                                       steps_grid=(SOLVER_STEPS,), path=tmp, device=device,
-                                                      x_test=truth[None]))
+                                                      x_test=x_test))
         rows = {r[1]: r for r in csv_rows(tmp / 'results/solver_sweep.csv')}
         want = {r[1]: r for r in committed['solver_sweep'] if r[0] == 'coarse' and r[2] == str(SOLVER_STEPS)}
         check(sorted(rows) == ['ddim', 'dpm2m'] and all(len(r) == 9 for r in rows.values()), f'rows {rows}')
@@ -1631,13 +1701,15 @@ def kolmogorov_sweeps(truth, main_ratio, device):
             ratio, reference = float(rows[solver][6]), float(want[solver][6])
             gate(f'sweep_solver {solver}, {SOLVER_STEPS} steps, C = 0: residual ratio', ratio, reference,
                  reference * (1 - SWEEP_RTOL), reference * (1 + SWEEP_RTOL))
-            log(f'  sweep_solver {solver}: spectrum distance {rows[solver][7]} (committed {want[solver][7]}), '
-                f'wall {rows[solver][8]}s; row {",".join(rows[solver])}')
+            spec, reference = float(rows[solver][7]), float(want[solver][7])
+            gate(f'sweep_solver {solver}: spectrum distance to the test split\'s frames', spec, reference,
+                 reference * (1 - SWEEP_RTOL), reference * (1 + SWEEP_RTOL))
+            log(f'  sweep_solver {solver}: wall {rows[solver][8]}s; row {",".join(rows[solver])}')
         check(float(rows['dpm2m'][7]) < float(rows['ddim'][7]),
               f'dpm2m spectrum distance {rows["dpm2m"][7]} not below ddim\'s {rows["ddim"][7]}')
 
         _, guidance_s = timed(lambda: sweep_guidance.main('unet_0', 'coarse', samples=GUIDANCE_SAMPLES, steps=STEPS,
-                                                          seed=0, path=tmp, device=device, x_test=truth[None],
+                                                          seed=0, path=tmp, device=device, x_test=x_test,
                                                           grid=(GUIDANCE_ROW,)))
         (row,) = csv_rows(tmp / 'results/guidance_sweep.csv')
         key = ['coarse', 'unet_0'] + [str(v) for v in GUIDANCE_ROW] + [str(STEPS)]
@@ -1684,17 +1756,19 @@ def entry_check(device):
 
 
 def main():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_float32_precision()  # as the port's command lines
 
     with phase('device'):
         check(torch.cuda.is_available(), 'no CUDA device: this smoke runs on the card only')
         device = torch.device('cuda')
         kind = torch.cuda.get_device_name(0)
-        card = nvidia_smi()
+        card = mfu_attribution.nvidia_smi()
         log(f'torch {torch.__version__} CUDA {torch.version.cuda}; device 0: {kind}; '
             f'{torch.cuda.device_count()} visible')
         log(f'nvidia-smi: {card}')
+        log(f'float32 precision of the command lines: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, '
+            f'matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; comparisons against float32 references '
+            'turn both off locally')
 
     with phase('build'):
         t = time.perf_counter()
@@ -1705,10 +1779,10 @@ def main():
                 log(f'  {line.strip()}')
         dft_kernels.library()
 
-    with phase('kernels against their plain versions'):
-        main_shape = check_kernels(device, 1, SIZE, SIZE, MODES, MODES, timed=True)  # the solver's one field
-        for n in (CHUNK, 4 * CHUNK):
-            check_kernels(device, n, SIZE, SIZE, MODES, MODES, timed=True)
+    with phase('kernels against their plain versions'), exact_float32():
+        solver_shape = {n: check_kernels(device, n, SIZE, SIZE, MODES, MODES, timed=True)
+                        for n in SOLVER_BATCHES}
+        main_shape = solver_shape[1]
         for shape in ((4, 64, 64, 22, 22), (3, 32, 32, 11, 11), (2, 45, 80, 12, 22), (3, 37, 50, 13, 17)):
             check_kernels(device, *shape, timed=False)
 
@@ -1727,7 +1801,7 @@ def main():
         log(f'  gradient through both kernels vs plain: max|err| {grad_err:.3e} (tol 1e-2)')
         check(grad_err <= 1e-2, f'kernel gradients disagree: {grad_err}')
 
-    with phase('cluster sizes'):
+    with phase('cluster sizes'), exact_float32():
         sweep_clusters(device, (1, 2, 4, CHUNK, 4 * CHUNK), SIZE, MODES)
 
     # -- The main path: truth, then assimilation. Counts from here on. ----
@@ -1790,7 +1864,10 @@ def main():
     with phase('flops'):
         main_flops, main_rate = flop_checks(score, config, assim_s, card, device)
 
-    with phase('one transition: kernels vs plain transforms'):
+    with phase('mfu attribution'):
+        attribution = attribution_checks(score, config, truth[0], card)
+
+    with phase('one transition: kernels vs plain transforms'), exact_float32():
         plain = KolmogorovFlow(SIZE, dt=0.2, dft_method='matmul', device=device)
         x0 = chain.prior((1,), generator=torch.Generator(device=device).manual_seed(1))
         a, b = chain.transition(x0), plain.transition(x0)
@@ -1803,7 +1880,7 @@ def main():
 
     # -- The training path. ---------------------------------------------
 
-    with phase('bf16 against f32'):
+    with phase('bf16 against f32'), exact_float32():
         bf16_against_f32(device)
 
     with phase('kolmogorov training data'):
@@ -1815,7 +1892,7 @@ def main():
         log(f'kernel launches {data_launches} (expected {data_expected})')
         check(data_launches == data_expected, f'data launches {data_launches}, expected {data_expected}')
 
-    with phase('unet_0 training step, card against CPU'):
+    with phase('unet_0 training step, card against CPU'), exact_float32():
         step_card_against_cpu(trainset, device)
 
     with phase('unet_0 training at full width'):
@@ -1827,10 +1904,12 @@ def main():
     # -- The evaluation path. --------------------------------------------
     frames = data.reshape(-1, 2, 64, 64)  # the reference frames: the training data's
 
-    with phase('kernels at the spectra shape'):
-        # The sweeps' batches too: 4 reference frames of the truth and
-        # subsample_s8's 4 x 8 posterior frames.
-        spectra_shape = spectra_kernels(device, (1, 4, 32, 64, SAMPLES * TRUTH_KEEP, EVAL_SAMPLES * 5, len(frames)))
+    with phase('kernels at the spectra shape'), exact_float32():
+        # The sweeps' batches too: sweep_methods' 4 reference frames of the
+        # truth, subsample_s8's 4 x 8 posterior frames and the test split's
+        # reference frames.
+        spectra_shape = spectra_kernels(device, (1, 4, 32, 64, SAMPLES * TRUTH_KEEP, EVAL_SAMPLES * 5, len(frames),
+                                                 SPLIT_FRAMES))
 
     dft_kernels.reset_launches()
 
@@ -1851,10 +1930,24 @@ def main():
     log(f'kernel launches on the evaluation path: {eval_launches} (expected {eval_expected})')
     check(eval_launches == eval_expected, f'evaluation path launches {eval_launches}, expected {eval_expected}')
 
+    with phase('kolmogorov test split'):
+        dft_kernels.reset_launches()
+        split, split_s = test_split(chain, device)
+        split_launches = dict(dft_kernels.launches)
+        # As the training data's, at the published length.
+        split_expected = {'rfft2': 2 + 3 * DATA_TRANSITIONS * chain.steps,
+                          'irfft2': 1 + DATA_TRANSITIONS * (3 * chain.steps + 1)}
+        log(f'test split {tuple(split.shape)} (trajectories {SPLIT[0]}-{SPLIT[1] - 1}) '
+            f'in {split_s:.2f}s ({split_s / DATA_TRANSITIONS * 1e3:.1f} ms per transition of '
+            f'{len(SPLIT_CHUNKS) * CHUNK} fields); kernel launches {split_launches} (expected {split_expected})')
+        check(tuple(split.shape) == (SPLIT[1] - SPLIT[0], DATA_FRAMES, 2, 64, 64), f'test split {tuple(split.shape)}')
+        check(bool(torch.isfinite(split).all()), 'non-finite test split')
+        check(split_launches == split_expected, f'test split launches {split_launches}, expected {split_expected}')
+
     with phase('sweeps'):
         dft_kernels.reset_launches()
         main_ratio = residual / get_scenario('coarse', truth[0], np.random.RandomState(0))[2]
-        solver_s, guidance_s = kolmogorov_sweeps(truth[0], main_ratio, device)
+        solver_s, guidance_s = kolmogorov_sweeps(split, main_ratio, device)
         sweep_launches = dict(dft_kernels.launches)
         # 3 rows, each a spectrum distance: 2 spectra of 2 forward launches.
         sweep_expected = {'rfft2': 3 * 4, 'irfft2': 0}
@@ -1864,7 +1957,7 @@ def main():
     with phase('hbm_probe'):
         peaks = memory_probe(device)
 
-    with phase('entry'):
+    with phase('entry'), exact_float32():
         entry_check(device)
 
     with phase('lorenz evaluation'):
@@ -1880,7 +1973,7 @@ def main():
     with phase('parallel: two ranks on the card (gloo)'):
         parallel_times = parallel_two_ranks(data[:TRAIN_TRAJ], device)
 
-    with phase('parallel: NCCL at world 1'):
+    with phase('parallel: NCCL at world 1'), exact_float32():
         parallel_nccl(data, truth[0], device)
 
     with phase('kernels summary'):
@@ -1906,17 +1999,22 @@ def main():
             f'{guidance_s:.1f}s; hbm_probe peak per sample {peaks["chunked"]:.3f} GiB chunked, '
             f'{peaks["plain"]:.3f} GiB plain; main path {main_flops:.6e} FLOPs at {main_rate / 1e12:.2f} TFLOP/s '
             f'on {card}')
-        batches = (1, 4, 32, SAMPLES * TRUTH_KEEP, len(frames))
+        solver_rows = {name: {n: solver_shape[n][name] for n in SOLVER_BATCHES} for name in ('rfft2', 'irfft2')}
+        log('kernels at the solver shape (256^2, 86 modes; N = 112 is the test split\'s batch): ' + json.dumps(
+            {'launches': {'test split': split_launches},
+             'clusters': {n: dft_kernels.cluster_size(n) for n in SOLVER_BATCHES}, 'kernels': solver_rows}))
+        batches = (1, 4, 32, SAMPLES * TRUTH_KEEP, len(frames), SPLIT_FRAMES)
         spectra_rows = {name: {n: spectra_shape[n][name] for n in batches} for name in ('rfft2', 'irfft2')}
         log('kernels at the spectra shape (64^2, every mode; launches on the sweep path): ' + json.dumps(
             {'launches': sweep_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in batches},
              'kernels': spectra_rows}))
+        log('mfu attribution of the main path: ' + json.dumps(attribution))
         qg_rows = {name: {n: qg_shape[n][name] for n in QG_BATCHES} for name in ('rfft2', 'irfft2')}
         log('kernels at the QG shape (128^2, 43 modes; launches on the QG data path): ' + json.dumps(
             {'launches': qg_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in QG_BATCHES},
              'kernels': qg_rows}))
 
-    print(nvidia_smi(), flush=True)
+    print(mfu_attribution.nvidia_smi(), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),
           flush=True)

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from .diffusion import LocalScoreUNet
 from .nn import reset_parameters
-from .utils import resolve_device
+from .utils import resolve_device, set_float32_precision
 
 Tensor = torch.Tensor
 
@@ -50,6 +50,7 @@ def entry(device: Union[str, torch.device] = 'cuda') -> Tuple[LocalScoreUNet, Tu
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--device', type=str, default='cuda')
     args = parser.parse_args()

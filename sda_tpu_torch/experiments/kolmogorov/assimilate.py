@@ -45,7 +45,7 @@ import torch.distributed as dist
 from ...diffusion import VPSDE, DPSGaussianScore, GaussianScore
 from ...dynamics import coarsen, upsample, vorticity
 from ...parallel import make_mesh
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .utils import PATH, draw, load_score, make_chain, make_trajectory_eps
 
 Tensor = torch.Tensor
@@ -348,6 +348,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='unet_0')
     parser.add_argument('--scenario', default='coarse', choices=SCENARIOS)

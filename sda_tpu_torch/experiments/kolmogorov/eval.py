@@ -30,7 +30,7 @@ from ...diffusion import VPSDE
 from ...dynamics import vorticity
 from ...eval import pairwise_distances, sinkhorn, spectrum_distance
 from ...train import append_csv, existing_csv_keys
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .assimilate import assimilate, get_scenario
 from .utils import PATH, load_score, make_trajectory_eps
 
@@ -152,6 +152,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='unet_0')
     parser.add_argument('--samples', type=int, default=64)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ...dynamics import vorticity
+from ...utils import set_float32_precision
 from .utils import PATH, draw, sandwich, save_gif
 
 
@@ -81,6 +82,7 @@ def assimilation_figures(gif_dt: float = 0.2, path: Path = PATH) -> None:
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--skip-sandwich', action='store_true')
     parser.add_argument('--skip-assim', action='store_true')

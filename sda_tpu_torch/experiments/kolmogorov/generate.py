@@ -19,13 +19,13 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ...dynamics import KolmogorovFlow, coarsen
-from ...utils import chunk_generator, resolve_device
+from ...utils import chunk_generator, resolve_device, set_float32_precision
 from .utils import PATH, make_chain
 
 
@@ -48,6 +48,15 @@ def simulate(
     xs = coarsen(xs[length - keep:], coarse)
 
     return xs.transpose(0, 1)
+
+
+def split_bounds(trajectories: int) -> Dict[str, Tuple[int, int]]:
+    r"""The trajectories ``[a, b)`` of each split: the first 80% train, the
+    next 10% valid, the rest test."""
+
+    i = int(0.8 * trajectories)
+    j = int(0.9 * trajectories)
+    return {'train': (0, i), 'valid': (i, j), 'test': (j, trajectories)}
 
 
 def main(
@@ -74,10 +83,7 @@ def main(
     device = resolve_device(device)
     chain = make_chain(size=size, device=device)
 
-    i = int(0.8 * trajectories)
-    j = int(0.9 * trajectories)
-    bounds = {'train': (0, i), 'valid': (i, j), 'test': (j, trajectories)}
-
+    bounds = split_bounds(trajectories)
     wanted = list(bounds) if only is None else only.split(',')
     first = min(bounds[name][0] for name in wanted) // chunk * chunk
 
@@ -100,6 +106,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--trajectories', type=int, default=1024)
     parser.add_argument('--size', type=int, default=256)

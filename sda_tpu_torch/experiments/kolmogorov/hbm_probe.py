@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ...diffusion import VPSDE, GaussianScore
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .assimilate import get_scenario
 from .utils import PATH, load_score, make_trajectory_eps
 
@@ -129,4 +129,5 @@ def main(argv=None) -> None:
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     main()

@@ -26,6 +26,7 @@ import torch
 
 from ...eval import spectrum_distance
 from ...train import append_csv, existing_csv_keys
+from ...utils import set_float32_precision
 from .assimilate import main as assimilate
 from .utils import PATH, reference_frames
 
@@ -95,6 +96,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='unet_0')
     parser.add_argument('--scenario', type=str, default='coarse')

@@ -33,7 +33,7 @@ from ...dynamics import vorticity
 from ...nn import reset_parameters
 from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
-from ...utils import resolve_device, save_config
+from ...utils import resolve_device, save_config, set_float32_precision
 from .utils import PATH, draw, make_score
 
 CONFIG = {
@@ -141,6 +141,7 @@ def train(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--epochs', type=int, default=None)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ...dynamics import KolmogorovFlow, vorticity
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from ...viz import RGBImage
 from .utils import PATH, make_chain, vorticity2rgb
 
@@ -171,6 +171,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--size', type=int, default=256)
     parser.add_argument('--spinup', type=int, default=64)

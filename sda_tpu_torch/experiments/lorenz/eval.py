@@ -28,7 +28,7 @@ import torch
 from ...diffusion import VPSDE, GaussianScore
 from ...eval import emd
 from ...train import append_csv, existing_csv_keys
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .utils import PATH, load_score, log_likelihood, log_prior, make_chain, make_trajectory_eps, posterior
 
 Tensor = torch.Tensor
@@ -221,6 +221,7 @@ def parse_indices(spec: str) -> list:
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('command', choices=['observations', 'evaluate'])
     parser.add_argument('--run', type=str, default='local_0')

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ...utils import set_float32_precision
 from .utils import PATH
 
 COLUMNS = ['index', 'run', 'corrections', 'log_px', 'log_py', 'w1']
@@ -205,6 +206,7 @@ def seed_spread(families=('local_k1', 'local_k2', 'local_k3', 'local_k4', 'globa
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument(
         '--runs', type=str,

@@ -18,7 +18,7 @@ from typing import Dict, Union
 import torch
 
 from ...train import save_h5
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .utils import PATH, make_chain
 
 
@@ -54,6 +54,7 @@ def main(chains: int = 1024, length: int = 1024, burnin: int = 1024, seed: int =
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--chains', type=int, default=1024)
     parser.add_argument('--length', type=int, default=1024)

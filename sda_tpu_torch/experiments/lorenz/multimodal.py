@@ -25,7 +25,7 @@ import torch
 
 from ...diffusion import VPSDE, GaussianScore
 from ...eval import weak_4d_var_objective
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .utils import PATH, load_score, log_likelihood, log_prior, make_chain, make_trajectory_eps, weak_4d_var
 
 Tensor = torch.Tensor
@@ -135,6 +135,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='global_0')
     parser.add_argument('--local', action='store_true', default=False)

@@ -28,7 +28,7 @@ import torch
 from ...diffusion import VPSDE, GaussianScore
 from ...eval import emd
 from ...train import append_csv, existing_csv_keys
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .eval import ensure_bpf, freq_params, load_observations, observe_raw
 from .utils import PATH, load_score, log_likelihood, log_prior, make_chain, make_trajectory_eps
 
@@ -95,6 +95,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='local_k2_0')
     parser.add_argument('--local', action='store_true', default=True)

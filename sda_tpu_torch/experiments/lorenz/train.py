@@ -31,7 +31,7 @@ from ...diffusion import VPSDE, MCScoreWrapper
 from ...nn import reset_parameters
 from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
-from ...utils import resolve_device, save_config
+from ...utils import resolve_device, save_config, set_float32_precision
 from .utils import PATH, make_chain, make_global_score, make_local_score
 
 GLOBAL_CONFIG = {
@@ -178,6 +178,7 @@ def sample_log_p(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--model', choices=['global', 'local'], default='local')
     parser.add_argument('--seed', type=int, default=0)

@@ -29,7 +29,7 @@ import torch
 
 from ...diffusion import VPSDE, GaussianScore
 from ...dynamics import coarsen
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .utils import PATH, draw, load_score, make_trajectory_eps
 
 Tensor = torch.Tensor
@@ -162,6 +162,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='qg_0')
     parser.add_argument('--scenario', default='upper', choices=SCENARIOS)

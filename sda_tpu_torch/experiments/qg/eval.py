@@ -33,7 +33,7 @@ import torch
 from ...diffusion import VPSDE
 from ...eval import spectrum_distance
 from ...train import append_csv, existing_csv_keys
-from ...utils import resolve_device
+from ...utils import resolve_device, set_float32_precision
 from .assimilate import OBS_STD, assimilate
 from .utils import PATH, load_score, make_trajectory_eps
 
@@ -158,6 +158,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--run', type=str, default='qg_0')
     parser.add_argument('--scenario', default='upper', choices=['upper', 'coarse', 'subsample'])

@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ...dynamics import QuasiGeostrophic, coarsen
-from ...utils import chunk_generator, resolve_device
+from ...utils import chunk_generator, resolve_device, set_float32_precision
 from .utils import PATH, make_chain
 
 Tensor = torch.Tensor
@@ -128,6 +128,7 @@ def main(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--trajectories', type=int, default=1024)
     parser.add_argument('--size', type=int, default=128)

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from ...diffusion import VPSDE
 from ...parallel import make_mesh
 from ...train import RunLogger, TrajectoryDataset, Trainer, restore_checkpoint, save_checkpoint, save_params
-from ...utils import resolve_device, save_config
+from ...utils import resolve_device, save_config, set_float32_precision
 from .utils import PATH, draw, init_score, make_score
 
 CONFIG = {
@@ -137,6 +137,7 @@ def train(
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--epochs', type=int, default=None)

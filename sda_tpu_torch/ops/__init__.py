@@ -1,3 +1,3 @@
 r"""Spectral transforms and the CUDA DFT kernels."""
 
-from .spectral import RealDFT2  # noqa: F401
+from .spectral import RealDFT2, default_dft_method  # noqa: F401

@@ -5,15 +5,16 @@ Counterpart of :class:`sda_tpu.ops.spectral.RealDFT2`. Three methods:
 - ``'matmul'``: basis contractions in plain torch (the plain version). The
   JAX package runs them at ``Precision.HIGHEST``; on a card that is true
   float32, so callers keep ``torch.backends.cuda.matmul.allow_tf32`` False
-  (PyTorch's default) for this path.
+  (PyTorch's default, which ``utils.set_float32_precision`` keeps).
 - ``'kernel'``: the CUDA kernel pair of :mod:`.dft_kernels` (its plain
   version on a CPU tensor).
 - ``'fft'``: ``torch.fft.rfft2``/``irfft2``, the counterpart of the JAX
   package's XLA FFT method. Like it, it takes only the untruncated layout: a
   truncated ``'fft'`` falls back to ``'matmul'``.
 
-``'auto'`` resolves to ``'kernel'`` on a CUDA device and to ``'matmul'``
-elsewhere, so the solvers' transforms go through the kernels on the card.
+``'auto'`` resolves through :func:`default_dft_method`: ``'kernel'`` on a CUDA
+device and ``'matmul'`` elsewhere, so the solvers' transforms go through the
+kernels on the card.
 Basis convention: ``numpy.fft.rfft2`` (forward :math:`e^{-2\pi i k n / N}`
 unnormalised, inverse scaled by :math:`1/N` per axis).
 """
@@ -29,6 +30,15 @@ from ..utils import resolve_device
 from . import dft_kernels
 
 Tensor = torch.Tensor
+
+
+def default_dft_method(device: Union[str, torch.device]) -> str:
+    r"""The DFT method ``'auto'`` picks for ``device``: the CUDA kernels on a
+    CUDA device, the basis contractions elsewhere. Counterpart of
+    :func:`sda_tpu.ops.spectral.default_dft_method`, which picks by the JAX
+    platform (``'matmul'`` on a TPU)."""
+
+    return 'kernel' if torch.device(device).type == 'cuda' else 'matmul'
 
 
 class RealDFT2:
@@ -55,7 +65,7 @@ class RealDFT2:
     ):
         device = resolve_device(device)
         if method == 'auto':
-            method = 'kernel' if device.type == 'cuda' else 'matmul'
+            method = default_dft_method(device)
         if method not in ('matmul', 'kernel', 'fft'):
             raise ValueError(f"unknown DFT method '{method}'")
         if method == 'fft' and not (h_modes is None and w_modes is None):

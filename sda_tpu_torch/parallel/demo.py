@@ -37,6 +37,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import set_float32_precision
+
 DEADLINE = 300.0  # seconds for the whole launch
 WINDOW, SIZE, BATCH, ROWS, LENGTH = 3, 8, 16, 64, 8
 
@@ -212,6 +214,7 @@ def launch(procs: int, device: str, deadline: float = DEADLINE) -> bool:
 
 
 if __name__ == '__main__':
+    set_float32_precision()
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument('--launch', type=int, default=None, help='start N ranks and check their parity')
     parser.add_argument('--device', type=str, default='cuda')
