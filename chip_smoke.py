@@ -57,7 +57,15 @@ settings, and ``sweep_solver`` (32 steps, both solvers) and
 own launch counts; ``hbm_probe`` on ``loop`` (127 frames, chunked with
 remat against plain); ``entry()`` against the CPU; the Lorenz
 ``sweep_solver`` after the Lorenz evaluation; and the training command's
-``samples.png`` in the NCCL phase.
+``samples.png`` in the NCCL phase. After the evaluation path, the
+256^2-native configuration (``unet256_0``'s config, with ``unet_0``'s
+parameters: ``unet256_0``'s are too large to keep in the checkout): one chunk
+of data256 at its published settings through the kernels, with its launch
+counts; AdamW steps at batch 16 from a fresh network, one traced;
+``coarse`` on its test trajectory 0 through ``assimilate.main`` with chunks
+of 8 windows, per-chunk remat and 16 segments; a guided evaluation with
+chunks and remat against the plain windowing; and ``hbm_probe``'s ``loop``
+at 127 frames of 256^2.
 
 Every phase runs under the float32 precision of the port's command lines
 (``set_float32_precision``: float32 convolutions in TF32, matmuls in
@@ -86,6 +94,7 @@ The script writes nothing but the kernels' build directory in the checkout.
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import struct
@@ -107,6 +116,7 @@ from sda_tpu_torch.experiments.kolmogorov import eval as kolmogorov_eval
 from sda_tpu_torch.experiments.kolmogorov import hbm_probe, sweep_guidance, sweep_methods, sweep_solver
 from sda_tpu_torch.experiments.kolmogorov import validate_solver
 from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, get_scenario, resimulate, scenario_label
+from sda_tpu_torch.experiments.kolmogorov.assimilate import main as assimilate_main
 from sda_tpu_torch.experiments.kolmogorov import train as kolmogorov_train
 from sda_tpu_torch.experiments.kolmogorov.generate import simulate, split_bounds
 from sda_tpu_torch.experiments.kolmogorov.train import CONFIG as KOLMOGOROV_CONFIG
@@ -328,6 +338,31 @@ PROBE = dict(length=127, steps=2, corrections=1)
 PROBE_CHUNKED, PROBE_PLAIN = dict(samples=16, chunk=8, remat=True), dict(samples=1, chunk=None, remat=False)
 # entry() on the card against the same module on the CPU, float32, TF32 off.
 ENTRY_ATOL = 1e-3
+
+# The 256^2-native configuration (docs/WALKTHROUGH.md): unet256_0's config
+# (window 5, 96/192/384 x 3/3/3, bf16) on data256, generate.py with
+# --trajectories 128 --keep 32 --coarse 1 --chunk 16. One chunk of data256 at
+# those settings, the chunk that holds the test split's first trajectory
+# (115, chunk 7); NATIVE_TRAIN_STEPS AdamW steps of the config at its batch
+# of 16 from a fresh network, then one traced; coarse on test trajectory 0
+# through assimilate.main with chunks of 8 windows, per-chunk remat and 16
+# segments at 2 samples, 16 of the published 64 steps x 1 correction (the
+# wall time); one guided evaluation with chunks and remat against the plain
+# windowing at 1 sample (the bf16 bound above, and a lower peak); and
+# hbm_probe's loop at 127 frames. unet256_0's parameters (91.5 MB) are too
+# large to keep in the checkout, and do not compress, so the config runs
+# with unet_0's parameters, which have the same shapes: its residual ratio is
+# a figure of borrowed weights, not of quality.
+UNET256_0 = REPO / 'experiments/kolmogorov/storage/runs/unet256_0'
+NATIVE_SIZE, NATIVE_TRAJECTORIES, NATIVE_KEEP = 256, 128, 32
+NATIVE_SPLIT = split_bounds(NATIVE_TRAJECTORIES)['test']
+NATIVE_CHUNK = NATIVE_SPLIT[0] // CHUNK
+NATIVE_TRAIN_STEPS = 8
+NATIVE_ASSIMILATE = dict(samples=2, steps=16, corrections=1, chunk=8, remat=True, segments=16)
+NATIVE_PROBE = dict(samples=1, length=127, chunk=8, remat=True, steps=2, corrections=1)
+# The JAX package's compiled peak of that probe on the TPU
+# (experiments/kolmogorov/storage/results/assim256.json): a TPU figure.
+NATIVE_TPU_PEAK_GB = 7.324
 
 T0 = time.perf_counter()
 
@@ -565,7 +600,8 @@ def profile_transition(chain, n, device):
 
 def profiled(fn, label, top=5):
     r"""One call of ``fn`` inside ``profile_trace`` (its trace written to a
-    temporary directory), then ``device_busy`` of that call."""
+    temporary directory), then ``device_busy`` of that call; returns its
+    busy share."""
 
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp, profile_trace(tmp) as traced:
@@ -573,14 +609,14 @@ def profiled(fn, label, top=5):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    device_busy(traced.profiler, wall_us, label, top)
+    return device_busy(traced.profiler, wall_us, label, top)
 
 
 def device_busy(prof, wall_us, label, top=5):
     r"""Logs the device's busy share of a profiled window, the ``top``
     kernels with most device time and the share of convolution and matmul
     kernels (cuDNN's, its FFT-based float32 convolutions included, and
-    cuBLAS's)."""
+    cuBLAS's); returns the busy share."""
 
     kernels = mfu_attribution.device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -593,6 +629,7 @@ def device_busy(prof, wall_us, label, top=5):
         f'convolutions and matmuls {product_us / 1e3:.2f} ms ({product_us / busy_us:.1%} of busy)')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}')
+    return busy_us / wall_us
 
 
 def window_batch(dataset, generator, batch):
@@ -1755,6 +1792,163 @@ def entry_check(device):
     check(err <= ENTRY_ATOL, f'entry() on the card differs from the CPU by {err}')
 
 
+# -- The 256^2-native configuration. ---------------------------------------
+
+
+def native_storage(tmp):
+    r"""A storage under ``tmp`` whose run ``unet256_0`` has the committed
+    ``config.json`` and ``unet_0``'s parameters."""
+
+    run = Path(tmp) / 'runs/unet256_0'
+    run.mkdir(parents=True)
+    (run / 'config.json').write_text((UNET256_0 / 'config.json').read_text())
+    (run / 'state.msgpack').symlink_to(UNET_0 / 'state.msgpack')
+    return Path(tmp)
+
+
+def native_data(chain, device):
+    r"""data256's chunk ``NATIVE_CHUNK`` as ``generate.py`` simulates it, with
+    its launch counts against the formula. Returns the chunk and its
+    numbers."""
+
+    dft_kernels.reset_launches()
+    data, s = timed(lambda: simulate(chain, batch=CHUNK, length=DATA_TRANSITIONS, keep=NATIVE_KEEP, coarse=1,
+                                     generator=chunk_generator(0, NATIVE_CHUNK, device)))
+    launches = dict(dft_kernels.launches)
+    # As the test split's: the prior, one to_spectral, 3 forward per
+    # substep; 3 inverse per substep and one to_velocity per transition.
+    expected = {'rfft2': 2 + 3 * DATA_TRANSITIONS * chain.steps,
+                'irfft2': 1 + DATA_TRANSITIONS * (3 * chain.steps + 1)}
+    std = data.std().item()
+    log(f'  data256 chunk {NATIVE_CHUNK} (trajectories {NATIVE_CHUNK * CHUNK}-{NATIVE_CHUNK * CHUNK + CHUNK - 1}) '
+        f'{tuple(data.shape)} in {s:.2f}s ({s / DATA_TRANSITIONS * 1e3:.1f} ms per transition of {CHUNK} fields); '
+        f'std {std:.4f}; kernel launches {launches} (expected {expected})')
+    check(tuple(data.shape) == (CHUNK, NATIVE_KEEP, 2, NATIVE_SIZE, NATIVE_SIZE), f'data256 {tuple(data.shape)}')
+    check(bool(torch.isfinite(data).all()), 'non-finite data256')
+    check(launches == expected, f'data256 launches {launches}, expected {expected}')
+    return data, {'data_s': s, 'transition_ms': s / DATA_TRANSITIONS * 1e3, 'std': std, 'launches': launches}
+
+
+def native_training(data, config, device):
+    r"""``NATIVE_TRAIN_STEPS`` AdamW steps of ``config`` at its batch size from
+    a fresh network on the windows of ``data``, then one traced step."""
+
+    g = torch.Generator(device=device).manual_seed(11)
+    batch = config['batch_size']
+    dataset = TrajectoryDataset(data, window=config['window'], flatten=True, device=device)
+    module = reset_parameters(make_score(**config), torch.Generator().manual_seed(0)).to(device)
+    sde = VPSDE(shape=(config['window'] * 2, NATIVE_SIZE, NATIVE_SIZE))
+    trainer = Trainer(sde, module, dataset, dataset, generator=g, **config)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(window_batch(dataset, g, batch))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(window_batch(dataset, g, batch)) for _ in range(NATIVE_TRAIN_STEPS - 1)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (NATIVE_TRAIN_STEPS - 1) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).tolist()
+    log(f'  {NATIVE_TRAIN_STEPS} AdamW steps at batch {batch} on windows {tuple(sde.shape)} of {len(data)} '
+        f'trajectories, bf16 compute: {step_ms:.1f} ms per step (after the first), peak '
+        f'memory {peak_gib:.2f} GiB; losses {[round(v, 4) for v in losses]}')
+    check(all(math.isfinite(v) for v in losses), f'non-finite training loss: {losses}')
+    x = window_batch(dataset, g, batch)
+    busy = profiled(lambda: trainer.train_step(x), 'one traced training step', top=8)
+    return {'step_ms': step_ms, 'peak_gib': peak_gib, 'busy': busy, 'losses': losses}
+
+
+def native_assimilation(path, x_test, config, card, device):
+    r"""``coarse`` through ``assimilate.main`` with ``NATIVE_ASSIMILATE``, then
+    one guided evaluation with chunks and remat against the plain windowing."""
+
+    torch.cuda.reset_peak_memory_stats()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        (residual, std, xs), s = timed(lambda: assimilate_main(
+            'unet256_0', 'coarse', seed=0, save=True, data='data256', device=device, path=path, x_test=x_test,
+            **NATIVE_ASSIMILATE))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f'  | {line}')
+    segments = [float(line.rsplit(' ', 1)[1].rstrip('s')) for line in lines if line.startswith('segment ')]
+    check(len(segments) == NATIVE_ASSIMILATE['segments'], f'{len(segments)} segments printed')
+    check(tuple(xs.shape) == (NATIVE_ASSIMILATE['samples'], 32, 2, NATIVE_SIZE, NATIVE_SIZE), f'xs {tuple(xs.shape)}')
+    check(bool(torch.isfinite(xs).all()), 'non-finite 256^2 samples')
+    check(math.isfinite(residual), f'residual {residual}')
+    saved = np.load(path / 'results/samples_coarse_unet256_0.npz')
+    check(saved['xs'].shape == tuple(xs.shape), f'saved samples {saved["xs"].shape}')
+    image = read_png(path / 'results/coarse_unet256_0.png')
+    rows, cols = NATIVE_ASSIMILATE['samples'], 8  # assimilate renders every 4th of the 32 frames
+    check(image.shape == (rows * (NATIVE_SIZE + 4) + 4, cols * (NATIVE_SIZE + 4) + 4, 3), f'PNG {image.shape}')
+
+    sizes = {k: config[k] for k in ('embedding', 'hidden_channels', 'hidden_blocks', 'kernel_size', 'size')}
+    windows = xs.shape[1] - 2 * (config['window'] // 2)
+    total = guided_sampler_flops(score_unet_flops(config['window'] * 2, 1, **sizes), windows,
+                                 NATIVE_ASSIMILATE['samples'], NATIVE_ASSIMILATE['steps'],
+                                 NATIVE_ASSIMILATE['corrections'])
+    sampling_s = sum(segments)
+    out = {'residual': residual, 'ratio': residual / std, 'main_s': s, 'sampling_s': sampling_s,
+           'step_ms': sampling_s / NATIVE_ASSIMILATE['steps'] * 1e3,
+           'segment_s': {'first': segments[0], 'median': float(np.median(segments)), 'max': max(segments)},
+           'peak_gib': peak_gib, 'tflops': total / sampling_s / 1e12}
+    log(f'  coarse, {tuple(xs.shape)}, {NATIVE_ASSIMILATE}: main {s:.2f}s, sampling {sampling_s:.2f}s '
+        f'({out["step_ms"]:.1f} ms per step; segments first {segments[0]:.2f}s, median '
+        f'{out["segment_s"]["median"]:.2f}s, max {max(segments):.2f}s); peak memory {peak_gib:.2f} GiB; '
+        f'{total:.4e} analytic FLOPs, {out["tflops"]:.2f} TFLOP/s on {card}; residual {residual:.4f}, ratio '
+        f'{out["ratio"]:.4f} with unet_0\'s parameters (borrowed weights: no quality figure)')
+
+    score, _ = load_score(path / 'runs/unet256_0', device=device)
+    x_star = torch.as_tensor(x_test[0], device=device)
+    A, y, std, length, gamma = get_scenario('coarse', x_star, np.random.RandomState(0))
+    x = torch.randn((1, length, 2, NATIVE_SIZE, NATIVE_SIZE), generator=torch.Generator(device=device).manual_seed(12),
+                    device=device)
+    tt = torch.tensor(0.5, device=device)
+    evals, peaks = {}, {}
+    for name, eps, remat in (('plain', MCScoreNet(score, order=2), False),
+                             ('chunk 8 + remat', MCScoreNet(score, order=2, chunk=8, remat=True), True)):
+        guided = GaussianScore(y, A, std, VPSDE(eps=eps, shape=()), gamma=gamma, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        evals[name], s = timed(lambda: guided(x, tt).double())
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        log(f'  guided eps, 1 x {length} frames, {name}: {s:.2f}s, peak memory {peaks[name]:.2f} GiB')
+    diff = evals['chunk 8 + remat'] - evals['plain']
+    rms, err = diff.square().mean().sqrt().item(), diff.abs().max().item()
+    log(f'  chunk 8 + remat against plain: rms {rms:.3e} (limit {BF16_RMS}), max {err:.3e} (limit {BF16_MAX}); '
+        f'|eps| max {evals["plain"].abs().max().item():.3f}')
+    check(rms <= BF16_RMS and err <= BF16_MAX, f'chunk + remat changes the guided eps: rms {rms}, max {err}')
+    check(peaks['chunk 8 + remat'] < peaks['plain'], f'chunk + remat does not lower the peak: {peaks}')
+    out['gate'] = {'rms': rms, 'max': err, 'peak_gib': peaks}
+    return out
+
+
+def native256(chain, card, device):
+    r"""The 256^2-native configuration (``NATIVE_*``). Returns its numbers."""
+
+    config = json.loads((UNET256_0 / 'config.json').read_text())
+    check((config['size'], config['batch_size'], config['bf16']) == (NATIVE_SIZE, 16, True), f'unet256_0 {config}')
+    check(all(config[k] == v for k, v in json.loads((UNET_0 / 'config.json').read_text()).items()
+              if k not in ('size', 'batch_size', 'epochs')), 'unet256_0 and unet_0 differ in their architecture')
+
+    data, out = native_data(chain, device)
+    x_test = data[NATIVE_SPLIT[0] - NATIVE_CHUNK * CHUNK:]  # trajectories 115-127: the test split's first 13
+    out['training'] = native_training(data, config, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = native_storage(tmp)
+        out['assimilation'] = native_assimilation(path, x_test, config, card, device)
+
+        probe = hbm_probe.probe('unet256_0', **NATIVE_PROBE, path=path, device=device)
+        log(f'  hbm_probe: {json.dumps(probe)}')
+        check(probe['status'] == 'executed' and probe['finite'], f'256^2 probe: {probe}')
+        log(f'  hbm_probe peak {probe["peak_memory_gb"]:.3f} GiB ({probe["peak_memory_gb"] * 2**30 / 1e9:.3f} GB) on '
+            f'{card}; the JAX package\'s compiled peak of this program on the TPU: {NATIVE_TPU_PEAK_GB} GB '
+            '(a TPU figure, assim256.json)')
+        out['probe'] = probe
+    return out
+
+
 def main():
     set_float32_precision()  # as the port's command lines
 
@@ -1930,6 +2124,9 @@ def main():
     log(f'kernel launches on the evaluation path: {eval_launches} (expected {eval_expected})')
     check(eval_launches == eval_expected, f'evaluation path launches {eval_launches}, expected {eval_expected}')
 
+    with phase('kolmogorov 256 native'):
+        native = native256(chain, card, device)
+
     with phase('kolmogorov test split'):
         dft_kernels.reset_launches()
         split, split_s = test_split(chain, device)
@@ -1998,7 +2195,9 @@ def main():
             f'sweep_methods {scenario_s["sweep_methods"]:.1f}s, sweep_solver {solver_s:.1f}s, sweep_guidance '
             f'{guidance_s:.1f}s; hbm_probe peak per sample {peaks["chunked"]:.3f} GiB chunked, '
             f'{peaks["plain"]:.3f} GiB plain; main path {main_flops:.6e} FLOPs at {main_rate / 1e12:.2f} TFLOP/s '
-            f'on {card}')
+            f'on {card}; 256 native: data256 chunk {native["data_s"]:.1f}s, {native["training"]["step_ms"]:.1f} ms '
+            f'per training step, {native["assimilation"]["step_ms"]:.1f} ms per sampler step at '
+            f'{native["assimilation"]["tflops"]:.2f} TFLOP/s, probe peak {native["probe"]["peak_memory_gb"]:.3f} GiB')
         solver_rows = {name: {n: solver_shape[n][name] for n in SOLVER_BATCHES} for name in ('rfft2', 'irfft2')}
         log('kernels at the solver shape (256^2, 86 modes; N = 112 is the test split\'s batch): ' + json.dumps(
             {'launches': {'test split': split_launches},
@@ -2009,6 +2208,7 @@ def main():
             {'launches': sweep_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in batches},
              'kernels': spectra_rows}))
         log('mfu attribution of the main path: ' + json.dumps(attribution))
+        log('kolmogorov 256 native (unet256_0\'s config with unet_0\'s parameters): ' + json.dumps(native))
         qg_rows = {name: {n: qg_shape[n][name] for n in QG_BATCHES} for name in ('rfft2', 'irfft2')}
         log('kernels at the QG shape (128^2, 43 modes; launches on the QG data path): ' + json.dumps(
             {'launches': qg_launches, 'clusters': {n: dft_kernels.cluster_size(n) for n in QG_BATCHES},

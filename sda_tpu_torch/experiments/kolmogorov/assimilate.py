@@ -200,7 +200,8 @@ def assimilate(
     :meth:`VPSDE.sample`). ``method`` is ``'sda'`` (:class:`GaussianScore`,
     with ``remat`` and the scenario's ``gamma`` unless given) or ``'dps'``
     (:class:`DPSGaussianScore`, zeta 1). ``segments > 1`` runs the time grid
-    as that many consecutive slices, which gives the same result as one.
+    as that many consecutive slices, which gives the same result as one, and
+    prints each slice's seconds as the JAX experiment does.
     """
 
     A, y, std, length, scenario_gamma = get_scenario(
@@ -222,10 +223,15 @@ def assimilate(
     xs = None if init is None else init.to(x_star.device)
     bounds = np.linspace(0, steps, segments + 1).astype(int)
     for i0, i1 in zip(bounds[:-1], bounds[1:]):
+        t0 = time.perf_counter()
         xs = sde.sample(
             (samples,), steps=steps, corrections=corrections, tau=tau, generator=generator,
             init=xs, noise=noise, solver=solver, segment=(int(i0), int(i1)),
         )
+        if segments > 1:
+            if xs.is_cuda:
+                torch.cuda.synchronize(xs.device)
+            print(f'segment {i0}:{i1} done in {time.perf_counter() - t0:.2f}s', flush=True)
 
     residual = float(torch.std(A(xs) - y, correction=0))
 
@@ -283,13 +289,16 @@ def main(
     device: Union[str, torch.device] = 'cuda',
     path: Path = PATH,
     x_test=None,
+    init: Optional[Tensor] = None,
+    noise: Optional[Callable[[int, int], Tensor]] = None,
 ) -> Optional[Tuple[float, float, Tensor]]:
     r"""Assimilates test trajectory ``seed`` with the run ``{path}/runs/{run}``
     as the JAX experiment's ``assimilate`` does; returns ``(residual, std,
     samples)``, or ``None`` on a rank outside the ``mesh``. ``bf16=None``
     follows the run's config. ``x_test`` holds the test trajectories
-    ``(N, L, 2, H, W)`` (default: ``{path}/{data}/test.h5``). Results go
-    under ``{path}/results``."""
+    ``(N, L, 2, H, W)`` (default: ``{path}/{data}/test.h5``); ``init`` and
+    ``noise`` replace the sampler's draws (see :meth:`VPSDE.sample`). Results
+    go under ``{path}/results``."""
 
     if mesh is not None:
         mesh = make_mesh(parse_mesh(mesh), device)
@@ -313,7 +322,7 @@ def main(
     xs, residual = assimilate(
         score, x_star, samples=samples, steps=steps, corrections=corrections, tau=tau, seed=seed,
         scenario=scenario, method=method, solver=solver, segments=segments, remat=remat, gamma=gamma,
-        stride=stride, offset=offset, length=length,
+        stride=stride, offset=offset, length=length, init=init, noise=noise,
     )
     std = get_scenario(scenario, x_star, np.random.RandomState(seed), stride, offset, length)[2]
     label = scenario_label(scenario, stride, offset)
