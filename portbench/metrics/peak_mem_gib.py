@@ -1,0 +1,4 @@
+r"""The peak of ``torch.cuda.max_memory_allocated`` over the window, reset at its start, in GiB."""
+
+def read(run):
+    return run['window_peak_bytes'] / 2**30 if run['cuda'] else None
