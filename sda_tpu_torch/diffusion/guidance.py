@@ -14,6 +14,7 @@ from typing import Callable, Optional, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..tracing import span
 from .sde import VPSDE
 from .windowed import MCScoreNet
 
@@ -87,17 +88,19 @@ class GaussianScore:
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
 
-            if self.detach:
-                with torch.no_grad():
-                    e = self.sde.eps(x, t, c)
-            else:
-                e = self._eps(x, t, c)
+            with span('guidance.forward'):
+                if self.detach:
+                    with torch.no_grad():
+                        e = self.sde.eps(x, t, c)
+                else:
+                    e = self._eps(x, t, c)
 
             x_hat = (x - sigma * e) / mu
             err = self.y - self.A(x_hat)
             log_p = -0.5 * torch.sum(err**2 / var)
 
-            (grad,) = torch.autograd.grad(log_p, x)
+            with span('guidance.vjp'):
+                (grad,) = torch.autograd.grad(log_p, x)
 
         return e.detach() - sigma * grad
 

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..tracing import counters, span
+
 Tensor = torch.Tensor
 EpsFn = Callable[..., Tensor]
 
@@ -64,7 +66,9 @@ def chunked_eval(
         x = torch.cat((x, x[:, -1:].expand((batch, pad) + x.shape[2:])), dim=1)
 
     def fn(xc):
-        return kernel(xc, t, c)
+        counters['unet.windows'] += xc.shape[0] * xc.shape[1]
+        with span('windowed.kernel'):
+            return kernel(xc, t, c)
 
     outputs = []
     for i in range(0, x.shape[1], chunk):
@@ -100,7 +104,9 @@ class MCScoreNet:
         x = unfold(x, self.order)
 
         if self.chunk is None:
-            s = self.kernel(x, t, c)
+            counters['unet.windows'] += x.shape[0] * x.shape[1]
+            with span('windowed.kernel'):
+                s = self.kernel(x, t, c)
         else:
             s = chunked_eval(self.kernel, x, t, c, self.chunk, self.remat)
 

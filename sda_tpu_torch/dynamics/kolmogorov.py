@@ -19,6 +19,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ..ops.spectral import RealDFT2
+from ..tracing import span
 from . import ops
 from .markov import MarkovChain
 
@@ -169,26 +170,27 @@ class KolmogorovFlow(MarkovChain):
     def substep(self, w: Spectral) -> Spectral:
         r"""One CFL substep: integrating-factor classical RK3 (Kutta)."""
 
-        h = self.h
-        e1 = self.exp_half
-        e2 = self.exp_full
-        wr, wi = w
+        with span('kolmogorov.substep'):
+            h = self.h
+            e1 = self.exp_half
+            e2 = self.exp_full
+            wr, wi = w
 
-        k1r, k1i = self._nonlinear(w)
+            k1r, k1i = self._nonlinear(w)
 
-        w2 = (e1 * (wr + h / 2 * k1r), e1 * (wi + h / 2 * k1i))
-        k2r, k2i = self._nonlinear(w2)
+            w2 = (e1 * (wr + h / 2 * k1r), e1 * (wi + h / 2 * k1i))
+            k2r, k2i = self._nonlinear(w2)
 
-        w3 = (
-            e2 * wr - h * e2 * k1r + 2 * h * e1 * k2r,
-            e2 * wi - h * e2 * k1i + 2 * h * e1 * k2i,
-        )
-        k3r, k3i = self._nonlinear(w3)
+            w3 = (
+                e2 * wr - h * e2 * k1r + 2 * h * e1 * k2r,
+                e2 * wi - h * e2 * k1i + 2 * h * e1 * k2i,
+            )
+            k3r, k3i = self._nonlinear(w3)
 
-        return (
-            e2 * wr + h / 6 * (e2 * k1r + 4 * e1 * k2r + k3r),
-            e2 * wi + h / 6 * (e2 * k1i + 4 * e1 * k2i + k3i),
-        )
+            return (
+                e2 * wr + h / 6 * (e2 * k1r + 4 * e1 * k2r + k3r),
+                e2 * wi + h / 6 * (e2 * k1i + 4 * e1 * k2i + k3i),
+            )
 
     def _advance(self, w: Spectral, mean: Tensor) -> Tuple[Spectral, Tensor]:
         r"""Advances one transition (``self.steps`` substeps)."""

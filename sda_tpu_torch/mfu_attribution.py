@@ -22,9 +22,10 @@ Each leg is timed over 8 calls after a warm-up call (the sampler over 2),
 with ``torch.cuda.synchronize()`` on both sides. With ``--trace
 DIR`` one more call of each leg runs inside
 :class:`~sda_tpu_torch.utils.profile_trace`, which writes its trace under
-``DIR/<leg>``, and the leg gets ``busy_pct``: the device's kernel time over
-that call's wall. The sampler's traced call runs ``TRACE_STEPS`` steps, the
-same loop body as the timed ones, so that its trace stays small. The peak is the H100 SXM's published dense rate for the
+``DIR/<leg>``, and the leg gets ``busy_pct``: the union of the device's
+operation intervals over that call's wall. The sampler's traced call runs
+``TRACE_STEPS`` steps, the same loop body as the timed ones, so that its
+trace stays small. The peak is the H100 SXM's published dense rate for the
 legs' dtype (bf16 989, TF32 495, float32 67 TFLOP/s; a float32 network
 runs its convolutions in TF32 when ``torch.backends.cudnn.allow_tf32`` is
 set, see :func:`~sda_tpu_torch.utils.set_float32_precision`); a card the
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -128,10 +130,18 @@ def device_kernels(profiler) -> list:
 
 
 def busy_share(profiler, wall_s: float) -> Optional[float]:
-    r"""The device's kernel time in a profiled window over its wall;
-    ``None`` when the profiler saw no device time."""
+    r"""The union of the device's operation intervals (kernels, copies,
+    fills) in a profiled window, read from the profiler's raw events, over
+    the window's wall, so that operations that overlap count once; ``None``
+    when the profiler saw no device time."""
 
-    busy_us = sum(e.self_device_time_total for e in device_kernels(profiler))
+    busy_us, end = 0.0, -math.inf
+    for e in sorted(profiler.profiler.kineto_results.events(), key=lambda e: e.start_ns()):
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
+            continue
+        a, b = e.start_ns() * 1e-3, (e.start_ns() + e.duration_ns()) * 1e-3
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
     return busy_us / (wall_s * 1e6) if busy_us > 0 else None
 
 

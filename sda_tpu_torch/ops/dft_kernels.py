@@ -27,20 +27,40 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Mapping
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..tracing import counters
+
 Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'dft.cu'
 BUILD = SOURCE.parent / 'build'
 
-#: Launches of each kernel since the last reset (a plain count, incremented
-#: only where a kernel is enqueued).
-launches = {'rfft2': 0, 'irfft2': 0}
+
+class _Launches(Mapping):
+    r"""Launches of each kernel since the last reset, by kernel name: the
+    counters ``dft.rfft2`` and ``dft.irfft2`` of :mod:`sda_tpu_torch.tracing`,
+    incremented only where a kernel is enqueued."""
+
+    def __getitem__(self, name: str) -> int:
+        return counters[f'dft.{name}']
+
+    def __iter__(self):
+        return iter(('rfft2', 'irfft2'))
+
+    def __len__(self) -> int:
+        return 2
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+launches = _Launches()
 
 _library: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -48,7 +68,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     for name in launches:
-        launches[name] = 0
+        counters[f'dft.{name}'] = 0
 
 
 def nvcc_command(output: Path) -> list:
@@ -327,7 +347,7 @@ def launch_rfft2(x: Tensor, plan: Plan, cluster: Optional[int] = None) -> Tuple[
         )
     if err != 0:
         raise RuntimeError(f'rfft2 kernel launch failed: CUDA error {err}')
-    launches['rfft2'] += 1
+    counters['dft.rfft2'] += 1
 
     return re, im
 
@@ -361,7 +381,7 @@ def launch_irfft2(
         )
     if err != 0:
         raise RuntimeError(f'irfft2 kernel launch failed: CUDA error {err}')
-    launches['irfft2'] += 1
+    counters['dft.irfft2'] += 1
 
     return x
 

@@ -1,8 +1,8 @@
-r"""Experiment tracking: JSONL/CSV metric logging with optional wandb.
+r"""Experiment tracking: JSONL/CSV metric logging.
 
 Counterpart of :mod:`sda_tpu.train.logging`: the same ``metrics.jsonl``
-records (``{'time', **metrics, 'step'}``), and wandb only where it imports
-and initialises, else quietly off.
+records (``{'time', **metrics, 'step'}``). The JAX package's optional wandb
+mirror has no counterpart: no command line of the port turns it on.
 """
 
 from __future__ import annotations
@@ -18,32 +18,13 @@ class RunLogger:
 
     Arguments:
         path: The run directory.
-        use_wandb: Attempt to mirror metrics to Weights & Biases (silently
-            disabled if wandb is unavailable or not configured).
-        project / group / config: wandb metadata.
     """
 
-    def __init__(
-        self,
-        path: Path,
-        use_wandb: bool = False,
-        project: Optional[str] = None,
-        group: Optional[str] = None,
-        config: Optional[Dict[str, Any]] = None,
-    ):
+    def __init__(self, path: Path):
         self.path = Path(path)
         self.path.mkdir(parents=True, exist_ok=True)
         self.file = open(self.path / 'metrics.jsonl', mode='a')
         self.t0 = time.time()
-
-        self.wandb_run = None
-        if use_wandb:
-            try:
-                import wandb
-
-                self.wandb_run = wandb.init(project=project, group=group, config=config)
-            except Exception:
-                self.wandb_run = None
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
         record = {'time': time.time() - self.t0, **metrics}
@@ -53,14 +34,8 @@ class RunLogger:
         self.file.write(json.dumps(record) + '\n')
         self.file.flush()
 
-        if self.wandb_run is not None:
-            self.wandb_run.log(metrics, step=step)
-
     def finish(self) -> None:
         self.file.close()
-
-        if self.wandb_run is not None:
-            self.wandb_run.finish()
 
 
 def append_csv(path: Path, row: str) -> None:

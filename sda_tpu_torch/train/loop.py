@@ -32,6 +32,7 @@ import torch.nn as nn
 
 from ..diffusion.sde import VPSDE
 from ..parallel.mesh import batch_constraint, replicate
+from ..tracing import span
 from .data import TrajectoryDataset
 
 Tensor = torch.Tensor
@@ -158,13 +159,16 @@ class Trainer:
 
         self.optimizer.zero_grad(set_to_none=True)
         if len(x):
-            loss = self.loss(x, t, z) * share
-            loss.backward()
+            with span('train.forward'):
+                loss = self.loss(x, t, z) * share
+            with span('train.backward'):
+                loss.backward()
         else:
             loss = torch.zeros((), device=t.device)
         if self.group is not None:
             loss = self._all_reduce(loss)
-        self.optimizer.step()
+        with span('train.optimizer'):
+            self.optimizer.step()
         self.step += 1
 
         return loss.detach()

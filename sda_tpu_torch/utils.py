@@ -121,7 +121,9 @@ class profile_trace:
     r"""Context manager around ``torch.profiler``: traces the host and, where
     a card is present, the device, and writes a Chrome/TensorBoard trace
     (``*.pt.trace.json``) under ``path``. The profiler object is
-    ``self.profiler`` (``key_averages()`` for device time by kernel).
+    ``self.profiler`` (``key_averages()`` for device time by kernel). The
+    port's spans (:mod:`sda_tpu_torch.tracing`) are on inside the block, so
+    the trace shows them beside the operators and the device's work.
 
     Unlike :class:`sda_tpu.utils.profile_trace`, a failure to start or stop
     the profiler raises: a profile that is silently absent hides the device.
@@ -138,14 +140,19 @@ class profile_trace:
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+        from .tracing import enable
+
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         self.profiler = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.path))
         self.profiler.__enter__()
+        self.spans = enable()
+        self.spans.__enter__()
         self.active = True
         return self
 
     def __exit__(self, *exc):
+        self.spans.__exit__(*exc)
         self.profiler.__exit__(*exc)
         return False

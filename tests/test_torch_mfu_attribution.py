@@ -129,3 +129,38 @@ def test_peak_table():
     assert mfu_attribution.peak_tflops(torch.device('cpu'), 'bf16') is None
     assert mfu_attribution.compute_dtype({'bf16': True}, torch.device('cpu')) == 'bf16'
     assert mfu_attribution.compute_dtype({}, torch.device('cpu')) == 'f32'
+
+
+class _Event:
+    def __init__(self, start_us, end_us, device='CUDA', annotation=False):
+        self.start, self.end = int(start_us * 1e3), int(end_us * 1e3)
+        self.device, self.annotation = device, annotation
+
+    def device_type(self):
+        import torch
+
+        return getattr(torch.autograd.DeviceType, self.device)
+
+    def is_user_annotation(self):
+        return self.annotation
+
+    def start_ns(self):
+        return self.start
+
+    def duration_ns(self):
+        return self.end - self.start
+
+
+def test_busy_share_counts_overlapping_kernels_once():
+    r"""Two kernels overlapping by 5 of their 10 us each, a third alone, a
+    user annotation over all of them and a host operation: 20 us busy over a
+    wall of 40 us."""
+
+    from types import SimpleNamespace
+
+    events = [_Event(10, 20), _Event(15, 25), _Event(30, 35), _Event(0, 40, annotation=True), _Event(0, 40, 'CPU')]
+    profiler = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events)))
+    assert mfu_attribution.busy_share(profiler, 40e-6) == pytest.approx(0.5)
+    assert mfu_attribution.busy_share(profiler, 40e-6) != pytest.approx(sum(e.end - e.start for e in events[:3]) / 40e3)
+    no_device = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events[3:])))
+    assert mfu_attribution.busy_share(no_device, 40e-6) is None

@@ -121,11 +121,12 @@ def test_writer_matches_msgpack_on_every_type():
 
 def test_logging_and_configs_match_jax(tmp_path):
     r"""The same ``metrics.jsonl`` records (``time`` aside), CSV rows and
-    keys, ``config.json`` bytes and random configs; wandb quietly off."""
+    keys, ``config.json`` bytes and random configs; the JAX logger's wandb
+    quietly off (the port has no wandb mirror)."""
 
-    for name, logger_cls in (('jax', JRunLogger), ('port', RunLogger)):
-        logger = logger_cls(tmp_path / name, use_wandb=True)
-        assert logger.wandb_run is None
+    jlogger = JRunLogger(tmp_path / 'jax', use_wandb=True)
+    assert jlogger.wandb_run is None
+    for logger in (jlogger, RunLogger(tmp_path / 'port')):
         logger.log({'loss_train': 0.5, 'lr': 1e-3}, step=1)
         logger.log({'log_p': 2.25})
         logger.finish()
