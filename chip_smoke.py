@@ -8,8 +8,10 @@ kernels (``KolmogorovFlow(256, dt=0.2)``: prior, 64 transitions, keep the last
 committed ``unet_0`` (bf16 compute as its config says; batch 4, 256 steps, 1
 Langevin correction). Before that it builds the kernels, holds each one
 against its plain PyTorch version at the solver's shapes and batches and at
-odd ones, and times every cluster size; after it, it checks the main path's
-launch counts, checks one solver transition through the kernels against the
+odd ones, and times every cluster size, then holds the U-Net block kernels
+(``csrc/unet_block.cu``) against theirs at ``unet_0``'s three levels and
+times them; after it, it checks the main path's launch counts, the U-Net
+kernels' among them, checks one solver transition through the kernels against the
 plain transforms, and profiles one transition of one field.
 
 Then the training path: ``unet_0``'s eps in bf16 against float32; training
@@ -108,7 +110,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from sda_tpu_torch import mfu_attribution, prng
+from sda_tpu_torch import mfu_attribution, prng, tracing
 from sda_tpu_torch.diffusion import VPSDE, GaussianScore, MCScoreNet
 from sda_tpu_torch.dynamics import KolmogorovFlow, QuasiGeostrophic, vorticity
 from sda_tpu_torch.entry import entry
@@ -133,7 +135,7 @@ from sda_tpu_torch.experiments.qg import generate as qg_generate
 from sda_tpu_torch.experiments.qg import utils as qg_utils
 from sda_tpu_torch.experiments.qg.train import CONFIG as QG_CONFIG
 from sda_tpu_torch.nn import guided_sampler_flops, reset_parameters, score_unet_flops
-from sda_tpu_torch.ops import RealDFT2, dft_kernels
+from sda_tpu_torch.ops import RealDFT2, dft_kernels, unet_kernels
 from sda_tpu_torch.parallel import ShardedMCScoreNet, init_multihost, make_mesh
 from sda_tpu_torch.parallel.demo import equal_on_all_ranks, free_port, run_ranks
 from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
@@ -149,6 +151,16 @@ CHUNK = 16  # trajectories per program in experiments/kolmogorov/generate.py
 TRUTH_LENGTH, TRUTH_KEEP = 64, 32
 SAMPLES, STEPS, CORRECTIONS = 4, 256, 1
 RESIDUAL_LIMIT = 0.2  # twice the observation noise
+
+# The U-Net block kernels (csrc/unet_block.cu) at unet_0's three levels and
+# the 112 windows of 4 samples x 32 frames, (N, H, W, C); held to their plain
+# versions within 2^-7 (1 + |plain|), about two bf16 units, as
+# tests/test_torch_unet_block_gpu.py holds them.
+UNET_LEVELS = ((112, 64, 64, 96), (112, 32, 32, 192), (112, 16, 16, 384))
+UNET_PADS = ((1, 1), (1, 1))
+UNET_TOL = 2.0 ** -7
+UNET_COUNTERS = ('unet.blocks', 'unet.blocks_fused', 'unet.norm_pad', 'unet.norm_pad_bwd', 'unet.act_pad',
+                 'unet.act_pad_bwd')
 
 REPO = Path(__file__).resolve().parent
 UNET_0 = REPO / 'experiments/kolmogorov/storage/runs/unet_0'
@@ -588,6 +600,107 @@ def sweep_clusters(device, batches, size, modes):
             log(f'  irfft2 N={n} cluster {cluster}: {ms:.4f} ms, max|err| {err:.2e}{mark}')
 
 
+def unet_kernel_bytes(n, h, w, c):
+    r"""Bytes each U-Net kernel must move at one level in a block's
+    configuration, each input read once and each output written once:
+    ``norm_pad`` reads ``x, r, b, m`` and writes ``s``, ``P`` and the
+    statistics; its backward reads ``dP, ds, s, m`` and the statistics and
+    writes ``dx``; ``act_pad`` reads ``a, b`` and writes ``Q``; its backward
+    reads ``dQ, a, b`` and writes ``da``."""
+
+    act, padded = 2 * n * h * w * c, 2 * n * (h + 2) * (w + 2) * c
+    stats, bias, mod = 8 * n * h * w, 4 * c, 2 * n * c
+    return {
+        'norm_pad': 3 * act + bias + mod + padded + stats,
+        'norm_pad_bwd': padded + 3 * act + mod + stats,
+        'act_pad': act + bias + padded,
+        'act_pad_bwd': padded + 2 * act + bias,
+    }
+
+
+def check_unet_kernels(device):
+    r"""The U-Net block kernels against their plain versions at
+    :data:`UNET_LEVELS`, in a block's configuration (residual, bias and
+    modulation into ``norm_pad``, SiLU and bias in ``act_pad``, each
+    backward with the stream's gradient where there is one): the worst
+    error as a share of the tolerance, and device ms (:func:`device_ms`, the
+    L2 warm between calls) against the byte bound at 3.35 TB/s and the
+    plain version's. Returns the rows by kernel, then by level."""
+
+    uk = unet_kernels
+    g = torch.Generator(device=device).manual_seed(16)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    def share(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs() / (UNET_TOL * (1 + b.abs()))).max().item()
+
+    rows = {name: {} for name in ('norm_pad', 'norm_pad_bwd', 'act_pad', 'act_pad_bwd')}
+    for n, h, w, c in UNET_LEVELS:
+        x, r, b, m = randn(n, h, w, c), randn(n, h, w, c), randn(c, dtype=torch.float32), randn(n, c)
+        s, p, mean, rstd = uk.launch_norm_pad(x, r, b, m, UNET_PADS)
+        dp, ds = randn(*p.shape), randn(*s.shape)
+        _, q = uk.launch_act_pad(x, None, b, True, UNET_PADS)
+        dq = randn(*q.shape)
+        calls = {
+            'norm_pad': (lambda: uk.launch_norm_pad(x, r, b, m, UNET_PADS)[1],
+                         lambda: uk.norm_pad_plain(x, r, b, m, UNET_PADS)[1]),
+            'norm_pad_bwd': (lambda: uk.launch_norm_pad_bwd(dp, ds, s, m, mean, rstd, UNET_PADS)[0],
+                             lambda: uk.norm_pad_bwd_plain(dp, ds, s, m, mean, rstd, UNET_PADS)[0]),
+            'act_pad': (lambda: uk.launch_act_pad(x, None, b, True, UNET_PADS)[1],
+                        lambda: uk.act_pad_plain(x, None, b, True, UNET_PADS, torch.bfloat16)[1]),
+            'act_pad_bwd': (lambda: uk.launch_act_pad_bwd(dq, None, x, b, True, UNET_PADS),
+                            lambda: uk.act_pad_bwd_plain(dq, None, x, b, True, UNET_PADS, torch.bfloat16)
+                            .to(torch.bfloat16)),
+        }
+        # The modulation's gradient (training): per-tile sums, then the tiles summed.
+        dm = uk.launch_norm_pad_bwd(dp, ds, s, m, mean, rstd, UNET_PADS, need_dm=True)[1]
+        dm_ref = uk.norm_pad_bwd_plain(dp, ds, s, m, mean, rstd, UNET_PADS, need_dm=True)[1]
+        dm_err = ((dm - dm_ref).abs().max() / dm_ref.abs().max()).item()
+        check(dm_err <= 1e-4, f'the modulation gradient at {(n, h, w, c)} differs from the plain one by {dm_err:.3e}')
+        log(f'  norm_pad_bwd N={n} {h}x{w}x{c}: modulation gradient max|err| {dm_err:.3e} of its largest (tol 1e-4)')
+        nbytes = unet_kernel_bytes(n, h, w, c)
+        for name, (kernel, plain) in calls.items():
+            err = share(kernel(), plain())
+            check(err <= 1, f'{name} at {(n, h, w, c)} differs from its plain version by {err:.3f} of the tolerance')
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            bound = nbytes[name] / PEAK_BYTES * 1e3
+            rows[name][f'{h}x{w}x{c}'] = {'err_share': err, 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+                                          'bytes': nbytes[name]}
+            log(f'  {name} N={n} {h}x{w}x{c}: error {err:.3f} of the tolerance; device ms (CUDA graph) kernel '
+                f'{ms:.4f}, plain {plain_ms:.4f}; bound {bound:.4f} (bytes, {bound / ms:.1%} reached)')
+    return rows
+
+
+def zero_unet_counters():
+    for name in UNET_COUNTERS:
+        tracing.counters[name] = 0
+
+
+def check_unet_launches(label, hidden_blocks, forwards, input_grad):
+    r"""The U-Net counters since :func:`zero_unet_counters` against
+    ``forwards`` forwards of a U-Net with ``hidden_blocks``, each with its
+    backward: every block on the kernels; per forward a ``norm_pad`` per
+    block and per ascent's layer norm, an ``act_pad`` per block, per
+    descent's start (the entry's included) and at the exit; each once
+    backward, less the entry's where the input takes no gradient (training).
+    Returns the counts."""
+
+    blocks, depths = 2 * sum(hidden_blocks), len(hidden_blocks)
+    per_forward = {'unet.blocks': blocks, 'unet.blocks_fused': blocks, 'unet.norm_pad': blocks + depths - 1,
+                   'unet.norm_pad_bwd': blocks + depths - 1, 'unet.act_pad': blocks + depths + 1,
+                   'unet.act_pad_bwd': blocks + depths + (1 if input_grad else 0)}
+    expected = {name: forwards * count for name, count in per_forward.items()}
+    counts = {name: tracing.counters[name] for name in UNET_COUNTERS}
+    log(f'U-Net counters on the {label}: {counts} (expected {expected}: {forwards} forwards and backwards)')
+    for name, count in counts.items():
+        check(count > 0, f'the {label} never counted {name}')
+    check(counts == expected, f'{label} U-Net counters {counts}, expected {expected}')
+    return counts
+
+
 def profile_transition(chain, n, device):
     r"""One solver transition of ``n`` fields under ``torch.profiler``: the
     device's busy share (kernel time over the transition's wall time, which
@@ -769,10 +882,12 @@ def full_width_training(trainset, validset, device):
     trainer = Trainer(sde, module, trainset, validset, generator=g, **config)
     losses = [trainer.train_step(window_batch(trainset, g, TRAIN_BATCH)) for _ in range(WARMUP)]
     torch.cuda.synchronize()
+    zero_unet_counters()
     t0 = time.perf_counter()
     losses += [trainer.train_step(window_batch(trainset, g, TRAIN_BATCH)) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    check_unet_launches('training steps', config['hidden_blocks'], TRAIN_STEPS, input_grad=False)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses).tolist()
     after = fixed_loss(module)
@@ -1998,6 +2113,12 @@ def main():
     with phase('cluster sizes'), exact_float32():
         sweep_clusters(device, (1, 2, 4, CHUNK, 4 * CHUNK), SIZE, MODES)
 
+    with phase('u-net kernels against their plain versions'):
+        t = time.perf_counter()
+        path, _ = unet_kernels.build()
+        log(f'nvcc: {time.perf_counter() - t:.1f}s -> {path}')
+        unet_rows = check_unet_kernels(device)
+
     # -- The main path: truth, then assimilation. Counts from here on. ----
     dft_kernels.reset_launches()
 
@@ -2026,12 +2147,17 @@ def main():
         log(f'unet_0: bf16={config["bf16"]}, hidden {config["hidden_channels"]}, window {config["window"]}')
         eps = make_trajectory_eps(score, config['window'])
         torch.cuda.synchronize()
+        zero_unet_counters()
         t = time.perf_counter()
         xs, residual = assimilate(
             eps, truth[0], samples=SAMPLES, steps=STEPS, corrections=CORRECTIONS, tau=0.5, seed=0,
         )
         torch.cuda.synchronize()
         assim_s = time.perf_counter() - t
+        # One eps with its input VJP per predictor and per correction.
+        unet_launches = check_unet_launches(
+            'main path', config['hidden_blocks'], STEPS * (1 + CORRECTIONS), input_grad=True,
+        )
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         log(f'samples {tuple(xs.shape)} in {assim_s:.2f}s ({assim_s / STEPS * 1e3:.1f} ms per step); '
             f'residual std(A(x) - y) = {residual:.4f} (limit {RESIDUAL_LIMIT}, obs std 0.1); '
@@ -2184,6 +2310,15 @@ def main():
                 'launches': launches[name], 'max_abs_err': row['max_abs_err'],
                 'ms': row['ms'], 'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                 'bound_by': row['bound_by'], 'library_ms': row['library_ms'],
+            })
+        for name, levels in unet_rows.items():
+            row = levels['64x64x96']
+            kernels.append({
+                'name': name, 'route': 'cuda', 'source': 'sda_tpu_torch/csrc/unet_block.cu',
+                'replaces': None, 'launches': unet_launches[f'unet.{name}'],
+                'err_share': max(level['err_share'] for level in levels.values()),
+                'ms': row['ms'], 'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'], 'bound_by': 'bytes',
+                'levels': levels,
             })
         log(f'wall {time.perf_counter() - T0:.1f}s; truth {truth_s:.1f}s; assimilation {assim_s:.1f}s; '
             f'training data {data_s:.1f}s; unet_0 {step_ms:.1f} ms per step; Lorenz data {lorenz_data_s:.1f}s, '

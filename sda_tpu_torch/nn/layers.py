@@ -61,6 +61,23 @@ def _compute_dtype(x: Tensor, weight: Tensor, dtype: Optional[torch.dtype]) -> t
     return torch.promote_types(x.dtype, weight.dtype) if dtype is None else dtype
 
 
+def kept_cast(
+    module: nn.Module, name: str, dtype: torch.dtype, memory_format: torch.memory_format = torch.preserve_format,
+) -> Tensor:
+    r"""``module``'s parameter ``name`` cast to ``dtype`` and ``memory_format``,
+    kept on the module and cast again only when the parameter changes: a new
+    tensor or an in-place update (its version), or another autograd mode.
+    Where the parameter takes a gradient, the kept cast carries it."""
+
+    p = getattr(module, name)
+    grad = torch.is_grad_enabled() and p.requires_grad
+    key = (p.data_ptr(), p._version, p.device, dtype, memory_format, grad, torch.is_inference_mode_enabled())
+    kept = module.__dict__.setdefault('_kept_casts', {})
+    if name not in kept or kept[name][0] != key:
+        kept[name] = (key, p.to(dtype=dtype, memory_format=memory_format))
+    return kept[name][1]
+
+
 class Dense(nn.Linear):
     r"""``nn.Linear`` with flax's compute-``dtype`` semantics."""
 
@@ -75,6 +92,13 @@ class Dense(nn.Linear):
     def forward(self, x: Tensor) -> Tensor:
         dtype = _compute_dtype(x, self.weight, self.compute_dtype)
         return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+
+    def forward_kept(self, x: Tensor) -> Tensor:
+        r""":meth:`forward` of an ``x`` already in the compute dtype, with the
+        parameters' casts kept between calls (:func:`kept_cast`)."""
+
+        dtype = _compute_dtype(x, self.weight, self.compute_dtype)
+        return F.linear(x, kept_cast(self, 'weight', dtype), kept_cast(self, 'bias', dtype))
 
 
 class Conv(nn.Module):
@@ -137,6 +161,21 @@ class Conv(nn.Module):
 
         conv = (F.conv1d, F.conv2d, F.conv3d)[len(self.kernel_size) - 1]
         return conv(x, self.weight.to(dtype), self.bias.to(dtype), stride=self.stride)
+
+    def wrap(self) -> Tuple[Tuple[int, int], ...]:
+        r"""The circular pad ``(lo, hi)`` of each axis, first axis first."""
+
+        return tuple(((k - 1) // 2, k // 2) for k in self.kernel_size)
+
+    def forward_padded(self, p: Tensor, bias: bool = False) -> Tensor:
+        r"""The 2-D convolution of an input ``p`` already padded (by
+        :meth:`wrap`) and in the compute dtype, channels-last, without the
+        bias unless ``bias``; the parameters' casts are kept between calls
+        (:func:`kept_cast`)."""
+
+        dtype = _compute_dtype(p, self.weight, self.compute_dtype)
+        weight = kept_cast(self, 'weight', dtype, torch.channels_last)
+        return F.conv2d(p, weight, kept_cast(self, 'bias', dtype) if bias else None, stride=self.stride)
 
 
 class TimeEmbedding(nn.Module):

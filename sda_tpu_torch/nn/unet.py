@@ -5,19 +5,29 @@ package runs channels-last inside and keeps channel-first at its public
 boundary, ``ScoreUNet``). Convolutions and residual blocks are listed in
 flax's creation order so that :func:`~sda_tpu_torch.train.params_from_flax`
 maps ``Conv_i`` and ``ModResidualBlock_i`` by index.
+
+On a CUDA tensor, a 2-D, circular, bf16 U-Net with SiLU runs channels-last
+between its first and last convolutions: the glue between convolutions is
+the hand-written kernels of :mod:`~sda_tpu_torch.ops.unet_kernels`, which
+write the wrap-padded NHWC input that cuDNN's convolutions read
+(:meth:`UNet.forward_fused`). Every other input runs the channel-first
+:meth:`UNet.forward_plain`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.unet_kernels import act_pad, norm_pad
+from ..tracing import counters
 from .layers import Conv, Dense, layer_norm
 
 Tensor = torch.Tensor
+Stream = Tuple[Tensor, Optional[Tensor], Optional[Tensor]]
 
 
 class ModResidualBlock(nn.Module):
@@ -43,6 +53,8 @@ class ModResidualBlock(nn.Module):
         ])
 
     def forward(self, x: Tensor, y: Tensor) -> Tensor:
+        counters['unet.blocks'] += 1
+
         y = self.denses[0](y)
         y = y.reshape(y.shape + (1,) * (x.ndim - 2))
 
@@ -53,6 +65,26 @@ class ModResidualBlock(nn.Module):
         h = self.convs[1](h)
 
         return x + h
+
+    def forward_fused(self, stream: Stream, y: Tensor) -> Stream:
+        r""":meth:`forward`'s function on the channels-last residual stream
+        ``(x, r, b)``, meaning ``x + (r + b)`` (:meth:`UNet.forward_fused`),
+        with ``y`` in the compute dtype; returns the next stream. The glue is
+        :func:`~sda_tpu_torch.ops.unet_kernels.norm_pad` and
+        :func:`~sda_tpu_torch.ops.unet_kernels.act_pad` with SiLU;
+        ``unet.blocks_fused`` counts the call where ``norm_pad`` launched its
+        kernel."""
+
+        counters['unet.blocks'] += 1
+        launches = counters['unet.norm_pad']
+        first, second = self.convs
+
+        s, p = norm_pad(*stream, m=self.denses[0].forward_kept(y), pads=first.wrap())
+        if counters['unet.norm_pad'] > launches:
+            counters['unet.blocks_fused'] += 1
+        _, q = act_pad(first.forward_padded(p), b=first.bias, silu=True, pads=second.wrap(), dtype=p.dtype)
+
+        return s, second.forward_padded(q), second.bias
 
 
 class UNet(nn.Module):
@@ -91,6 +123,10 @@ class UNet(nn.Module):
         kernel = (kernel_size,) * spatial if isinstance(kernel_size, int) else tuple(kernel_size)
         self.stride = (stride,) * spatial if isinstance(stride, int) else tuple(stride)
         self.hidden_blocks = tuple(hidden_blocks)
+        self.activation = activation
+        self.spatial = spatial
+        self.circular = circular
+        self.compute_dtype = dtype
 
         padding = 'circular' if circular else 'same'
         channels = tuple(hidden_channels)
@@ -137,6 +173,14 @@ class UNet(nn.Module):
             Output field ``(N, out_channels, *spatial)``.
         """
 
+        if self.fused_for(x):
+            return self.forward_fused(x, y)
+        return self.forward_plain(x, y)
+
+    def forward_plain(self, x: Tensor, y: Tensor) -> Tensor:
+        r""":meth:`forward`'s function channel-first, every block a
+        :class:`ModResidualBlock` call."""
+
         convs = iter(self.convs)
         blocks = iter(self.blocks)
         depths = len(self.hidden_blocks)
@@ -163,3 +207,60 @@ class UNet(nn.Module):
                 x = next(convs)(x)
 
         return x
+
+    def fused_for(self, x: Tensor) -> bool:
+        r"""Whether :meth:`forward` takes :meth:`forward_fused` for ``x``: a
+        CUDA tensor into a 2-D, circular, bf16 U-Net with SiLU, what the
+        kernels implement."""
+
+        return (
+            x.is_cuda and self.spatial == 2 and self.circular
+            and self.compute_dtype == torch.bfloat16 and self.activation is F.silu
+        )
+
+    def forward_fused(self, x: Tensor, y: Tensor) -> Tensor:
+        r""":meth:`forward`'s function, channels-last from the first
+        convolution to the last, with the glue between convolutions in
+        :func:`~sda_tpu_torch.ops.unet_kernels.norm_pad` and
+        :func:`~sda_tpu_torch.ops.unet_kernels.act_pad` (their plain versions
+        on a CPU tensor).
+
+        The residual stream is carried as ``(x, r, b)``, meaning ``x + (r +
+        b)``: each convolution runs without its bias, and the next kernel adds
+        the bias, the residual or skip connection and the modulation, and
+        writes the padded input of the convolution after it. The sums round as
+        :meth:`forward`'s do, one at a time in the compute dtype. The
+        parameters' casts to the compute dtype are kept between calls
+        (:func:`~sda_tpu_torch.nn.layers.kept_cast`).
+        """
+
+        dtype = self.compute_dtype or torch.float32
+        convs = iter(self.convs)
+        blocks = iter(self.blocks)
+        depths = len(self.hidden_blocks)
+        memory = []
+        y = y.to(dtype)  # once, for every block's Dense
+
+        stream = (x, None, None)
+        for i, n in enumerate(self.hidden_blocks):
+            conv = next(convs)
+            s, q = act_pad(*stream, pads=conv.wrap(), keep=i > 0, dtype=dtype)
+            if i > 0:
+                memory.append(s)
+            stream = (conv.forward_padded(q), None, conv.bias)
+            for _ in range(n):
+                stream = next(blocks).forward_fused(stream, y)
+
+        for i in reversed(range(depths)):
+            for _ in range(self.hidden_blocks[i]):
+                stream = next(blocks).forward_fused(stream, y)
+
+            conv = next(convs)
+            if i > 0:
+                _, p = norm_pad(*stream, pads=conv.wrap(), up=self.stride)
+                stream = (memory.pop(), conv.forward_padded(p), conv.bias)
+            else:
+                _, q = act_pad(*stream, pads=conv.wrap(), dtype=dtype)
+                x = conv.forward_padded(q, bias=True)
+
+        return x.contiguous()

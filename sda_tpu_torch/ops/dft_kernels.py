@@ -71,28 +71,29 @@ def reset_launches() -> None:
         counters[f'dft.{name}'] = 0
 
 
-def nvcc_command(output: Path) -> list:
+def nvcc_command(output: Path, source: Path = SOURCE) -> list:
     nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     return [
         nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-        '-o', str(output), str(SOURCE),
+        '-o', str(output), str(source),
     ]
 
 
-def build() -> Tuple[Path, str]:
-    r"""Compiles ``csrc/dft.cu`` unless a library built from the same source
-    exists; returns its path and the compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel; empty when reused)."""
+def build(source: Path = SOURCE, name: str = 'sda_dft') -> Tuple[Path, str]:
+    r"""Compiles ``source`` (by default ``csrc/dft.cu``) into ``lib<name>.so``
+    unless a library built from the same source exists; returns its path and
+    the compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel; empty when reused)."""
 
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    target = BUILD / digest / 'libsda_dft.so'
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    target = BUILD / digest / f'lib{name}.so'
     if target.exists():
         return target, ''
 
     target.parent.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name(f'libsda_dft.{os.getpid()}.so')
-    done = subprocess.run(nvcc_command(partial), capture_output=True, text=True)
+    partial = target.with_name(f'lib{name}.{os.getpid()}.so')
+    done = subprocess.run(nvcc_command(partial, source), capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f'nvcc failed ({done.returncode}):\n{done.stdout}{done.stderr}')
     os.replace(partial, target)  # atomic: a concurrent process never loads half a file

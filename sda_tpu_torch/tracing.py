@@ -26,6 +26,11 @@ Counters:
 
 - ``unet.windows``: windows handed to the window kernel (batch x windows of
   each call, pad windows and recomputes included);
+- ``unet.blocks``: calls of a U-Net residual block, and ``unet.blocks_fused``
+  those whose ``norm_pad`` kernel launched (:meth:`~sda_tpu_torch.nn.UNet.forward_fused`);
+- ``unet.norm_pad`` / ``unet.norm_pad_bwd`` / ``unet.act_pad`` /
+  ``unet.act_pad_bwd``: launches of those kernels
+  (:mod:`~sda_tpu_torch.ops.unet_kernels`), forward and backward;
 - ``dft.rfft2`` / ``dft.irfft2``: launches of the DFT kernels
   (:data:`~sda_tpu_torch.ops.dft_kernels.launches` reads them).
 """
@@ -41,7 +46,11 @@ _NULL = contextlib.nullcontext()
 _enabled = False
 
 #: Every counter of the port, by name.
-counters: Dict[str, int] = {'unet.windows': 0, 'dft.rfft2': 0, 'dft.irfft2': 0}
+counters: Dict[str, int] = {
+    'unet.windows': 0, 'unet.blocks': 0, 'unet.blocks_fused': 0,
+    'unet.norm_pad': 0, 'unet.norm_pad_bwd': 0, 'unet.act_pad': 0, 'unet.act_pad_bwd': 0,
+    'dft.rfft2': 0, 'dft.irfft2': 0,
+}
 
 
 def enabled() -> bool:
