@@ -19,7 +19,7 @@ import json
 import os
 import sys
 
-from portbench import run, weights
+from portbench import run
 
 
 def main(argv=None) -> int:
@@ -46,7 +46,6 @@ def main(argv=None) -> int:
     manifest = run.read_json(run.ROOT / 'BENCHMARK.json')
     entry = next(w for w in manifest['workloads'] if w['name'] == args.workload)
     config = run.read_json(run.BENCH / 'configs' / f"{entry['config']}.json")
-    tree = weights.flat(weights.read_tree(run.ROOT / config['weights']))
     faults = [f for f in args.faults.split(',') if f]
     work = run.read_json(run.BENCH / 'workloads' / f'{args.workload}.json')
     out = run.ROOT / 'chiprun_out' / f'readings_{args.workload}.jsonl'
@@ -62,7 +61,7 @@ def main(argv=None) -> int:
             return readings
 
         result = run.run_cell(args.workload, seed, args.seconds, False, torch.device('cuda'), manifest=manifest,
-                              work=work, config=config, tree=tree, inspect=inspect)
+                              work=work, config=config, inspect=inspect)
         line = json.dumps({'seed': seed, 'metrics': result['metrics'], 'attempted': result['attempted'],
                            'program': result['checks'], 'readings': result['readings']})
         print(line, flush=True)

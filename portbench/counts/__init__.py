@@ -2,23 +2,22 @@ r"""Frozen arithmetic of the benchmark: FLOPs, bytes and the card's peaks.
 
 Copied from the port (``sda_tpu_torch/nn/flops.py``, ``chip_smoke.py``'s
 ``dft_bound_ms``) so that a later change to the program cannot move the
-yardstick. ``portbench/tests/test_portbench_counts.py`` pins that the copies
-still equal the port's functions.
+yardstick; each score network's own count is in its arch module
+(``portbench/archs``). ``portbench/tests/test_portbench_counts.py`` pins
+that the copies still equal the port's functions.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Tuple
+
+from portbench import archs
 
 #: Published dense peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at the
 #: full 700 W), in FLOP/s by compute dtype, and its HBM rate in bytes/s.
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
-
-
-def _as_tuple(v: Union[int, Sequence[int]], n: int) -> tuple:
-    return (v,) * n if isinstance(v, int) else tuple(v)
 
 
 def conv_flops(elems: int, c_in: int, c_out: int, kernel_elems: int) -> int:
@@ -31,83 +30,11 @@ def dense_flops(features_in: int, features_out: int) -> int:
     return 2 * features_in * features_out
 
 
-def unet_flops(
-    in_channels: int,
-    out_channels: int,
-    hidden_channels: Sequence[int],
-    hidden_blocks: Sequence[int],
-    kernel_size: Union[int, Sequence[int]],
-    size: Union[int, Sequence[int]],
-    spatial: int = 2,
-    stride: Union[int, Sequence[int]] = 2,
-    embedding: int = 64,
-) -> int:
-    r"""Forward FLOPs of the modulated U-Net on one event: the head conv, per
-    depth a strided conv and ``hidden_blocks[i]`` residual blocks (2 convs and
-    a modulation dense each) down, the same blocks, an upsampling conv and the
-    output conv up. Elementwise work is left out."""
-
-    kernel = _as_tuple(kernel_size, spatial)
-    strides = _as_tuple(stride, spatial)
-    sizes = _as_tuple(size, spatial)
-    k_elems = math.prod(kernel)
-
-    def elems(depth: int) -> int:
-        return math.prod(s // (r**depth) for s, r in zip(sizes, strides))
-
-    def block(depth: int) -> int:
-        c = hidden_channels[depth]
-        return 2 * conv_flops(elems(depth), c, c, k_elems) + dense_flops(embedding, c)
-
-    total = 0
-    depths = len(hidden_blocks)
-    for i in range(depths):
-        c_in = in_channels if i == 0 else hidden_channels[i - 1]
-        total += conv_flops(elems(i), c_in, hidden_channels[i], k_elems)
-        total += hidden_blocks[i] * block(i)
-    for i in reversed(range(depths)):
-        total += hidden_blocks[i] * block(i)
-        c_out = hidden_channels[i - 1] if i > 0 else out_channels
-        total += conv_flops(elems(max(i - 1, 0)), hidden_channels[i], c_out, k_elems)
-
-    return total
-
-
-def score_unet_flops(
-    channels: int,
-    context_channels: int = 0,
-    embedding: int = 64,
-    hidden_channels: Sequence[int] = (32, 64, 128),
-    hidden_blocks: Sequence[int] = (2, 3, 5),
-    kernel_size: Union[int, Sequence[int]] = 3,
-    size: Union[int, Sequence[int]] = 64,
-    spatial: int = 2,
-    stride: Union[int, Sequence[int]] = 2,
-) -> int:
-    r"""Forward FLOPs of one score U-Net evaluation: the U-Net over the state
-    and context channels, and the time embedding's MLP (32 -> 256 ->
-    ``embedding``)."""
-
-    total = unet_flops(
-        channels + context_channels, channels, hidden_channels, hidden_blocks,
-        kernel_size, size, spatial, stride, embedding,
-    )
-    return total + dense_flops(32, 256) + dense_flops(256, embedding)
-
-
 def window_flops(config: dict) -> int:
-    r"""Forward FLOPs of the Kolmogorov window kernel of ``config``: ``window``
-    frames of 2 channels plus the forcing channel."""
+    r"""Forward FLOPs of one window of ``config``'s score network: its arch's
+    ``window_flops`` (``portbench/archs/<arch>.py``)."""
 
-    return score_unet_flops(
-        channels=config['window'] * 2,
-        context_channels=1,
-        embedding=config['embedding'],
-        hidden_channels=config['hidden_channels'],
-        hidden_blocks=config['hidden_blocks'],
-        kernel_size=config['kernel_size'],
-        size=config['size'],
-    )
+    return archs.of(config).window_flops(config)
 
 
 def guided_step_flops(config: dict, length: int, samples: int, corrections: int) -> float:

@@ -1,7 +1,8 @@
 r"""Guided assimilation: the ``coarse`` scenario through the port's sampler.
 
 Set-up builds what ``experiments.kolmogorov.assimilate.assimilate`` builds:
-the run's window kernel (``make_score``), its trajectory eps
+the run's window kernel (the arch's ``program``: ``make_score`` for the
+U-Net), its trajectory eps
 (``make_trajectory_eps``, with the cell's chunk and remat), the scenario's
 operator, noise and inflation (``get_scenario('coarse')``), ``GaussianScore``
 and the ``VPSDE`` over the trajectory. The benchmark makes the inputs from
@@ -34,8 +35,8 @@ import time
 import numpy as np
 import torch
 
-from portbench.counts import PEAK_FLOPS, guided_step_flops, window_flops
-from portbench.drivers import one_thread
+from portbench import archs
+from portbench.counts import PEAK_FLOPS, guided_step_flops
 from portbench.reference import unet as ref
 from portbench.reference.kolmogorov import KolmogorovReference
 from portbench.seeds import generator, seed_of
@@ -47,13 +48,13 @@ class Driver:
     count_name = 'step'
 
     def __init__(self, config: dict, work: dict, seed: int, device: torch.device, tree: dict):
-        from sda_tpu_torch.diffusion import VPSDE, GaussianScore, bind_eps
+        from sda_tpu_torch.diffusion import VPSDE, GaussianScore
         from sda_tpu_torch.experiments.kolmogorov.assimilate import get_scenario
-        from sda_tpu_torch.experiments.kolmogorov.utils import make_score, make_trajectory_eps
-        from sda_tpu_torch.train import params_from_flax
+        from sda_tpu_torch.experiments.kolmogorov.utils import make_trajectory_eps
 
         tr = work['traffic']
         self.config, self.work, self.seed, self.device, self.tree = config, work, seed, device, tree
+        self.arch = archs.of(config)
         self.samples, self.length, size = tr['samples'], tr['length'], config['size']
         self.steps, self.corrections, self.tau, self.segment = tr['steps'], tr['corrections'], tr['tau'], tr['segment']
         self.shape = (self.samples, self.length, 2, size, size)
@@ -69,8 +70,7 @@ class Driver:
         self.y = obs + std * torch.randn(obs.shape, generator=generator(seed, 'y', device=device), device=device)
         self.std, self.gamma = std, gamma
 
-        with one_thread():
-            module = bind_eps(make_score(**config), params_from_flax(ref.nest(tree))).to(device)
+        module = self.arch.program(config, tree, device).requires_grad_(False).eval()
         self.score = make_trajectory_eps(module, config['window'], chunk=tr['chunk'], remat=tr['remat'])
         guided = GaussianScore(y=self.y, A=A, std=std, sde=VPSDE(eps=self.score, shape=()), gamma=gamma,
                                remat=tr['remat'])
@@ -124,26 +124,6 @@ class Driver:
             self.pos = i1
         return i1 - i0
 
-    def probes(self) -> dict:
-        r"""CUDA events around the window kernel's forward over the cell's
-        windows (the trajectory eps at its chunking, no gradient)."""
-
-        if self.device.type != 'cuda':
-            return {}
-        t = torch.tensor(0.5, device=self.device)
-        with torch.no_grad():
-            self.score(self.x, t)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            reps = self.work['probe_reps']
-            start.record()
-            for _ in range(reps):
-                self.score(self.x, t)
-            end.record()
-            end.synchronize()
-        windows = self.length - self.config['window'] + 1
-        return {'forward_s': start.elapsed_time(end) / 1e3 / reps,
-                'forward_flops': float(window_flops(self.config)) * windows * self.samples}
-
     def release(self) -> None:
         self.sde = self.score = self.x = None
         if self.device.type == 'cuda':
@@ -159,7 +139,7 @@ class Driver:
             return self.rollouts[key]
         if self.params is None:
             self.params = ref.to_device(self.tree, self.device)
-        net = ref.ScoreUNet(self.params, self.config, precision)
+        net = self.arch.reference(self.params, self.config, precision)
         step = ref.GuidedStep(net, self.config['window'], self.y, self.std, self.gamma, self.steps,
                               self.corrections, self.tau, self.work['reference_chunk'])
         noise = self.noise(grid)

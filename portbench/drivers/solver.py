@@ -66,9 +66,6 @@ class Driver:
         self.done += self.segment
         return self.segment
 
-    def probes(self) -> dict:
-        return {}
-
     def release(self) -> None:
         self.chain = self.x = None
         if self.device.type == 'cuda':

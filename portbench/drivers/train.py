@@ -1,15 +1,16 @@
 r"""Training: AdamW steps of the window kernel through ``Trainer.train_step``.
 
 Set-up builds what ``experiments.kolmogorov.train`` builds, from the run's
-parameters instead of a fresh draw: the window kernel (``make_score``, its
-parameters float32, its products in the configuration's dtype), the
+parameters instead of a fresh draw: the window kernel (the arch's
+``program``; for the U-Net ``make_score``, its parameters float32, its
+products in the configuration's dtype), the
 ``VPSDE`` of a flattened window, a ``TrajectoryDataset`` of windows of
 ``window`` frames held on the device, and the ``Trainer`` with the
 configuration's optimizer settings. The benchmark makes the trajectories
 (unit normal fields, the published split's shape) and every draw from the
 seed on the device: each epoch's shuffle, each batch's crop starts, times
 and noise. The dataset crops the windows. Set-up warms the trainer up with
-steps on draws of their own, then puts the committed parameters back in
+steps on draws of their own, then puts the run's parameters back in
 place and resets AdamW's state and the step count, so that the window starts
 the job afresh: one step per unit, each issued when the host is free, the
 first ones recorded for the comparison.
@@ -35,8 +36,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from portbench import archs
 from portbench.counts import PEAK_FLOPS, train_step_flops
-from portbench.drivers import one_thread
 from portbench.reference import unet as ref
 from portbench.seeds import generator
 
@@ -57,11 +58,11 @@ class Driver:
 
     def __init__(self, config: dict, work: dict, seed: int, device: torch.device, tree: dict):
         from sda_tpu_torch.diffusion import VPSDE
-        from sda_tpu_torch.experiments.kolmogorov.utils import make_score
-        from sda_tpu_torch.train import TrajectoryDataset, Trainer, params_from_flax
+        from sda_tpu_torch.train import TrajectoryDataset, Trainer
 
         tr = work['traffic']
         self.config, self.work, self.seed, self.device, self.tree = config, work, seed, device, tree
+        self.arch = archs.of(config)
         self.batch, window, size = config['batch_size'], config['window'], config['size']
         self.gen = generator(seed, 'draws', device=device)
 
@@ -70,11 +71,8 @@ class Driver:
         self.data = data
         self.dataset = TrajectoryDataset(data, window=window, flatten=True, device=device)
 
-        with one_thread():
-            module = make_score(**config)
-        module.load_state_dict(params_from_flax(ref.nest(tree)))
-        self.module = module.to(device)
-        self.names = self._flax_names(params_from_flax)
+        self.module = self.arch.program(config, tree, device)
+        self.names = self.arch.names(tree)
         sde = VPSDE(shape=(window * 2, size, size))
         self.trainer = Trainer(sde, self.module, self.dataset, self.dataset, epochs=config['epochs'],
                                batch_size=self.batch, optimizer=config['optimizer'],
@@ -107,14 +105,6 @@ class Driver:
         self.g1 = self.p_after = None
         self.perm, self.cursor = None, 0
 
-    def _flax_names(self, params_from_flax) -> Dict[str, str]:
-        r"""The program's parameter name of each flax leaf, found by handing
-        the program's converter leaves that hold their own index."""
-
-        keys = list(self.tree)
-        marked = {k: np.full(v.shape, i, np.float32) for i, (k, v) in enumerate(self.tree.items())}
-        return {name: keys[int(t.reshape(-1)[0])] for name, t in params_from_flax(ref.nest(marked)).items()}
-
     def _draw(self, rows: Tensor, gen: torch.Generator) -> tuple:
         starts = self.dataset.draw_starts(len(rows), gen)
         t = torch.rand((len(rows),), generator=gen, device=self.device)
@@ -146,9 +136,6 @@ class Driver:
                 self.p_after = {k: p.detach().clone() for k, p in self.module.named_parameters()}
         return 1
 
-    def probes(self) -> dict:
-        return {}
-
     def release(self) -> None:
         self.trainer = self.module = self.dataset = None
         if self.device.type == 'cuda':
@@ -179,12 +166,13 @@ class Driver:
                for k in range(len(batches))]
         p0 = ref.to_device(self.tree, self.device)
         with ref.true_float32():
-            out = ref.adamw_steps(p0, self.config, precision, batches, lrs, hook=hook)
+            out = ref.adamw_steps(p0, lambda p: self.arch.reference(p, self.config, precision), batches, lrs,
+                                  self.config['weight_decay'], hook=hook)
         return {'losses': out['losses'], 'grads': ref.leaf_norms(out['grads']),
                 'change': ref.leaf_norms({k: out['params'][k] - p0[k] for k in p0})}
 
     def program(self) -> dict:
-        r"""The program's readings, by flax leaf."""
+        r"""The program's readings, by leaf of the tree."""
 
         return {'losses': [float(v) for v in self.losses],
                 'grads': {self.names[k]: v for k, v in ref.leaf_norms(self.g1).items()},

@@ -1,5 +1,6 @@
 r"""Plain PyTorch reference of the Kolmogorov score model, its guided sampler
-step and its AdamW training step.
+step and its AdamW training step. The step, the loss and AdamW take any window
+network ``net(x, t)``: an arch's ``reference`` (``portbench/archs``).
 
 Written from the model's description, not from the program: the window
 kernel is a modulated U-Net over ``window`` frames of 2 velocity channels
@@ -90,10 +91,16 @@ def caster(precision: str) -> Callable[[Tensor], Tensor]:
     raise ValueError(f'unknown precision {precision!r}')
 
 
-def to_device(tree: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
-    r"""A flat ``{path: array}`` tree as float32 tensors on ``device``."""
+def to_device(tree: dict, device) -> Dict[str, Tensor]:
+    r"""A flat ``{path: array or tensor}`` tree as float32 tensors on
+    ``device``."""
 
-    return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in tree.items()}
+    def leaf(v):
+        if torch.is_tensor(v):
+            return v.to(device, torch.float32)
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return {k: leaf(v) for k, v in tree.items()}
 
 
 def layer_norm(x: Tensor, dim: int, eps: float = 1e-5) -> Tensor:
@@ -278,18 +285,18 @@ class GuidedStep:
 # -- Training ----------------------------------------------------------------
 
 
-def denoising_loss(net: ScoreUNet, x: Tensor, t: Tensor, z: Tensor) -> Tensor:
+def denoising_loss(net: Callable[[Tensor, Tensor], Tensor], x: Tensor, t: Tensor, z: Tensor) -> Tensor:
     r"""``mean((eps(mu x + sigma z, t) - z)^2)`` over a batch of windows."""
 
     tt = t.reshape(-1, 1, 1, 1)
     return (net(mu(tt) * x + sigma(tt) * z, t) - z).square().mean()
 
 
-def adamw_steps(params: Dict[str, Tensor], config: dict, precision: str, batches: List[tuple],
-                lrs: List[float], betas=(0.9, 0.999), eps: float = 1e-8,
+def adamw_steps(params: Dict[str, Tensor], network: Callable[[Dict[str, Tensor]], Callable], batches: List[tuple],
+                lrs: List[float], weight_decay: float, betas=(0.9, 0.999), eps: float = 1e-8,
                 hook: Optional[Callable[[Dict[str, Tensor]], Dict[str, Tensor]]] = None) -> dict:
-    r"""AdamW (decoupled weight decay ``config['weight_decay']``) over
-    ``batches`` of ``(x, t, z)``, learning rate ``lrs[k]`` at step ``k``.
+    r"""AdamW (decoupled ``weight_decay``) of the network ``network(params)``
+    over ``batches`` of ``(x, t, z)``, learning rate ``lrs[k]`` at step ``k``.
     Returns each step's loss, the first step's gradients and the parameters
     after the last step. ``hook`` may alter each step's gradients (a planted
     fault)."""
@@ -297,10 +304,9 @@ def adamw_steps(params: Dict[str, Tensor], config: dict, precision: str, batches
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     m = {k: torch.zeros_like(v) for k, v in p.items()}
     v2 = {k: torch.zeros_like(v) for k, v in p.items()}
-    wd = config['weight_decay']
     losses, first = [], None
     for step, ((x, t, z), lr) in enumerate(zip(batches, lrs), start=1):
-        loss = denoising_loss(ScoreUNet(p, config, precision), x, t, z)
+        loss = denoising_loss(network(p), x, t, z)
         grads = torch.autograd.grad(loss, list(p.values()))
         if hook is not None:
             grads = list(hook(dict(zip(p, grads))).values())
@@ -309,7 +315,7 @@ def adamw_steps(params: Dict[str, Tensor], config: dict, precision: str, batches
             if first is None:
                 first = {k: g.clone() for k, g in zip(p, grads)}
             for (k, w), g in zip(p.items(), grads):
-                w.mul_(1 - lr * wd)
+                w.mul_(1 - lr * weight_decay)
                 m[k] = betas[0] * m[k] + (1 - betas[0]) * g
                 v2[k] = betas[1] * v2[k] + (1 - betas[1]) * g * g
                 m_hat = m[k] / (1 - betas[0] ** step)
@@ -318,13 +324,13 @@ def adamw_steps(params: Dict[str, Tensor], config: dict, precision: str, batches
     return {'losses': losses, 'grads': first, 'params': {k: w.detach() for k, w in p.items()}}
 
 
-# -- Parameters for the tests -------------------------------------------------
+# -- Parameters drawn from a seed --------------------------------------------
 
 
-def init_tree(config: dict, generator: torch.Generator) -> Dict[str, np.ndarray]:
-    r"""Seeded parameters of a (small) configuration, as a flat flax tree of
-    float32 arrays: kernels normal with variance ``1 / fan_in``, biases small
-    normals, so that every leaf has a gradient."""
+def init_tree(config: dict, generator: torch.Generator) -> Dict[str, Tensor]:
+    r"""Seeded parameters of a configuration, as a flat flax tree of float32
+    tensors on the generator's device: kernels normal with variance ``1 /
+    fan_in``, biases small normals, so that every leaf has a gradient."""
 
     c = 2 * config['window']
     k = config['kernel_size']
@@ -350,9 +356,8 @@ def init_tree(config: dict, generator: torch.Generator) -> Dict[str, np.ndarray]
     tree = {}
     for name, shape in shapes.items():
         fan_in = math.prod(shape[:-1])
-        kernel = torch.randn(shape, generator=generator) / math.sqrt(fan_in)
-        tree[name + '/kernel'] = kernel.numpy()
-        tree[name + '/bias'] = (0.1 * torch.randn(shape[-1:], generator=generator)).numpy()
+        tree[name + '/kernel'] = torch.randn(shape, generator=generator, device=generator.device) / math.sqrt(fan_in)
+        tree[name + '/bias'] = 0.1 * torch.randn(shape[-1:], generator=generator, device=generator.device)
     return tree
 
 

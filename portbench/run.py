@@ -3,18 +3,19 @@ r"""The port's benchmark: one cell of ``BENCHMARK.json`` per process.
     python3 -m portbench.run --workload assim64 --seed 12345 --seconds 30 --trace 0
 
 In order: the port's command-line float32 precision; a check that the card
-is there (no fallback to the CPU); set-up, which reads the run's parameters,
-builds the program and warms up the cell's own shapes (``setup_s``); a
-window of ``--seconds`` of closed-loop work, each unit issued when the last
-one was, with the peak memory reset at its start; with ``--trace 1`` a short
-profiled window after it and the per-layer probes; then, with the program's
-state freed, the comparison of what the window produced with the plain
-reference. The last line of standard output is one JSON object; the numbers
+is there (no fallback to the CPU); set-up, which reads the run's parameters
+(or draws them from the seed), builds the program and warms up the cell's own
+shapes (``setup_s``); a window of ``--seconds`` of closed-loop work, each
+unit issued when the last one was, with the peak memory reset at its start;
+with ``--trace 1`` a short profiled window after it; then, with the
+program's state freed, the comparison of what the window produced with the
+plain reference. The last line of standard output is one JSON object; the numbers
 compared, each beside its limit, are the last lines of standard error.
 
 Everything that belongs to a configuration, a cell or a metric is a file found
-by its name: ``configs/<config>.json``, ``workloads/<cell>.json`` (its driver
-kind, traffic and limits), ``drivers/<kind>.py`` and ``metrics/<metric>.py``.
+by its name: ``configs/<config>.json``, ``archs/<arch>.py`` (the score
+network a configuration names), ``workloads/<cell>.json`` (its driver kind,
+traffic and limits), ``drivers/<kind>.py`` and ``metrics/<metric>.py``.
 """
 
 from __future__ import annotations
@@ -51,6 +52,19 @@ def load(kind: str, name: str):
 
 def read_json(path: Path) -> dict:
     return json.loads(Path(path).read_text())
+
+
+def parameters(config: dict, seed: int, device) -> dict:
+    r"""The run's parameters as a flat tree: read from ``config['weights']``
+    where the configuration names a file, else drawn from ``seed`` on
+    ``device`` by its arch's ``init_tree``."""
+
+    from . import archs, weights
+    from .seeds import generator
+
+    if 'weights' in config:
+        return weights.flat(weights.read_tree(ROOT / config['weights']))
+    return archs.of(config).init_tree(config, generator(seed, 'params', device=device))
 
 
 def forbidden_modules() -> List[str]:
@@ -98,14 +112,12 @@ def run_cell(
     r"""Runs one cell and returns its result line as a dict (the JSON object
     the command prints). ``manifest``, ``work``, ``config`` and ``tree``
     replace ``BENCHMARK.json``, the cell's file, its configuration's file and
-    the parameters read from ``config['weights']`` (the tests run tiny cells
-    on the CPU this way). ``inspect(driver)``, after the comparison, adds
+    the run's parameters (:func:`parameters`; the tests run tiny cells on
+    the CPU this way). ``inspect(driver)``, after the comparison, adds
     its return value under ``'readings'`` (the calibration reads the
     control there)."""
 
     import torch
-
-    from . import weights
 
     cuda = device.type == 'cuda'
 
@@ -123,12 +135,13 @@ def run_cell(
     sync()
     t1 = time.perf_counter()
     if tree is None:
-        tree = weights.flat(weights.read_tree(ROOT / config['weights']))
+        tree = parameters(config, seed, device)
+        sync()
     t2 = time.perf_counter()
     driver = load('drivers', work['driver']).Driver(config, work, seed, device, tree)
     sync()
     setup_s = time.perf_counter() - t0
-    log(f'{cell}: set-up {setup_s:.3f} s (device context {t1 - t0:.3f} s, parameters read {t2 - t1:.3f} s, '
+    log(f'{cell}: set-up {setup_s:.3f} s (device context {t1 - t0:.3f} s, parameters {t2 - t1:.3f} s, '
         f'program built and warmed up {t0 + setup_s - t2:.3f} s)')
 
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -145,7 +158,7 @@ def run_cell(
     window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     log(f'{cell}: {counts} {driver.count_name}s in {window_s:.3f} s')
 
-    traced, probes, breakdown = None, {}, None
+    traced, breakdown = None, None
     if trace:
         from . import trace as tracing
 
@@ -162,7 +175,6 @@ def run_cell(
                   'busy_s': tracing.busy_seconds(dev)}
         gap_dev, gap_host, _ = tracing.profile(traced_units, device, host=True)
         breakdown = tracing.breakdown(dev, gap_dev, gap_host)
-        probes = driver.probes()
         log(f'{cell}: traced {traced["counts"]} {driver.count_name}s, {len(dev)} device operations, '
             f'{trace_s:.3f} s window; traced again with the host\'s operators; read in '
             f'{time.perf_counter() - t1:.1f} s')
@@ -175,7 +187,7 @@ def run_cell(
 
     run = {'cell': cell, 'cuda': cuda, 'config': config, 'work': work, 'setup_s': setup_s, 'window_s': window_s,
            'counts': counts, 'window_peak_bytes': window_peak, 'flops_per_count': driver.flops_per_count,
-           'peak_flops': driver.peak_flops, 'trace': traced, 'probes': probes}
+           'peak_flops': driver.peak_flops, 'trace': traced}
     e2e = selected(manifest['end_to_end'], cell, set())
     reported = {m['name'] for m in e2e}
     metrics = {}

@@ -14,8 +14,8 @@ the backward's kernels. Times are in microseconds.
 off, as before. So :func:`reading` builds the cell's driver once more, after
 the comparison, and profiles ``trace_units`` units of it, once per traced
 run, kept in the run for every metric that reads it. It builds that driver
-from the command line's ``--seed`` and the parameters of
-``config['weights']``, so ``run_cell`` called in-process (no ``--seed``, and
+from the command line's ``--seed`` and the run's parameters
+(``run.parameters``), so ``run_cell`` called in-process (no ``--seed``, and
 perhaps a ``tree`` of its own) gives no reading. A program without
 ``sda_tpu_torch.tracing`` gives no reading either, and those metrics none.
 """
@@ -185,12 +185,11 @@ def reading(run: dict, log: Callable[[str], None] = lambda s: print(s, file=sys.
 
 def _measure(run: dict, seed: int, log: Callable[[str], None]) -> dict:
     from portbench import run as bench
-    from portbench import weights
 
     t0 = time.perf_counter()
     config, work = run['config'], run['work']
     device = torch.device('cuda')
-    tree = weights.flat(weights.read_tree(bench.ROOT / config['weights']))
+    tree = bench.parameters(config, seed, device)
     driver = bench.load('drivers', work['driver']).Driver(config, work, seed, device, tree)
     t1 = time.perf_counter()
     try:

@@ -9,7 +9,7 @@ import torch
 from portbench import run
 from portbench.reference.unet import init_tree
 
-TINY = dict(window=5, embedding=8, hidden_channels=[4, 8], hidden_blocks=[1, 1], kernel_size=3,
+TINY = dict(arch='unet', window=5, embedding=8, hidden_channels=[4, 8], hidden_blocks=[1, 1], kernel_size=3,
             activation='SiLU', epochs=16, batch_size=4, optimizer='AdamW', learning_rate=2e-4,
             weight_decay=1e-3, scheduler='linear', bf16=False, size=16, dt=0.2)
 

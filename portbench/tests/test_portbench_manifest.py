@@ -6,13 +6,15 @@ import re
 
 import pytest
 
-from portbench import run
+from portbench import archs, run
 
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.-]{1,16}$')
 LINE = re.compile(r'^[^\n\t]{1,200}$')
 PATH = re.compile(r'^[A-Za-z0-9_./-]{1,200}$')
 MANIFEST = run.read_json(run.ROOT / 'BENCHMARK.json')
+#: What an arch module (``portbench/archs/<arch>.py``) gives.
+ARCH = ('program', 'reference', 'init_tree', 'window_flops', 'names')
 
 
 def test_top_level_keys_and_command():
@@ -41,7 +43,10 @@ def test_configs(entry):
     assert config['source'] == entry['source'] and config['reduced'] == entry['reduced']
     assert len(entry['reduced']) <= 16 and all(NAME.match(k) for k in entry['reduced'])
     assert any(w['config'] == entry['name'] for w in MANIFEST['workloads'])
-    assert (run.ROOT / config['weights']).is_file()
+    assert 'weights' not in config or (run.ROOT / config['weights']).is_file()
+    arch = archs.of(config)
+    assert all(callable(getattr(arch, f, None)) for f in ARCH), config['arch']
+    assert all(getattr(arch, f).__module__.startswith('portbench.reference.') for f in ('reference', 'init_tree'))
 
 
 @pytest.mark.parametrize('entry', MANIFEST['workloads'], ids=lambda e: e['name'])

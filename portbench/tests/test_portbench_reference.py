@@ -76,7 +76,8 @@ def test_adamw_equals_torch():
     tree = ref.init_tree(TINY, torch.Generator().manual_seed(2))
     params = ref.to_device(tree, 'cpu')
     x, t, z = torch.randn(4, 10, 16, 16), torch.rand(4), torch.randn(4, 10, 16, 16)
-    out = ref.adamw_steps(params, TINY, 'float32', [(x, t, z)] * 2, [1e-3, 1e-3])
+    out = ref.adamw_steps(params, lambda p: ref.ScoreUNet(p, TINY), [(x, t, z)] * 2, [1e-3, 1e-3],
+                          TINY['weight_decay'])
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     opt = torch.optim.AdamW(list(p.values()), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-3)
     for _ in range(2):

@@ -4,9 +4,9 @@ both the program and the plain reference.
 A frozen msgpack decoder for ``flax.serialization.to_bytes`` trees: maps of
 maps whose leaves are ext objects (type 1 an ndarray as the triple ``(shape,
 dtype name, raw C-order bytes)``, type 3 a numpy scalar, type 2 a complex
-pair), large arrays as ``{'__msgpack_chunked_array__': ...}`` maps. A tiny
-configuration (the tests) takes seeded parameters instead, drawn by
-:func:`portbench.reference.unet.init_tree`.
+pair), large arrays as ``{'__msgpack_chunked_array__': ...}`` maps. A
+configuration without ``weights`` takes parameters drawn from the seed
+instead, by its arch's ``init_tree`` (``portbench.run.parameters``).
 """
 
 from __future__ import annotations
