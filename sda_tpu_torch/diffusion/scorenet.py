@@ -1,5 +1,6 @@
 r"""Score networks: the MLP :class:`ScoreNet`, :class:`ScoreUNet` and the
-forcing-conditioned :class:`LocalScoreUNet`.
+forcing-conditioned window kernels :class:`LocalScoreUNet` and
+:class:`LocalScoreDiT`.
 
 Counterpart of :mod:`sda_tpu.diffusion.scorenet`, with the same channel-first
 event layout ``(..., C, *spatial)`` at the call boundary. A torch module holds
@@ -16,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..nn.dit import DiT
 from ..nn.layers import ResMLP, TimeEmbedding
 from ..nn.unet import UNet
 from ..utils import broadcast
@@ -129,6 +131,14 @@ class ScoreUNet(nn.Module):
         return y.reshape(x.shape).to(x.dtype)
 
 
+def kolmogorov_forcing(size: int) -> Tensor:
+    r"""The Kolmogorov forcing ``sin(4 b)`` at the cell centres of a
+    ``size`` grid, varying along the last axis: ``(1, size, size)``."""
+
+    domain = 2 * math.pi / size * (torch.arange(size, dtype=torch.float32) + 0.5)
+    return torch.sin(4 * domain).expand(1, size, size).contiguous()
+
+
 class LocalScoreUNet(nn.Module):
     r"""Score U-Net conditioned on the fixed Kolmogorov forcing ``sin(4 b)``
     (cell centres, varying along the last axis), which overrides any ``c``.
@@ -154,9 +164,7 @@ class LocalScoreUNet(nn.Module):
     ):
         super().__init__()
 
-        domain = 2 * math.pi / size * (torch.arange(size, dtype=torch.float32) + 0.5)
-        forcing = torch.sin(4 * domain).expand(1, size, size).contiguous()
-        self.register_buffer('forcing', forcing, persistent=False)
+        self.register_buffer('forcing', kolmogorov_forcing(size), persistent=False)
 
         self.score = ScoreUNet(
             channels,
@@ -174,6 +182,59 @@ class LocalScoreUNet(nn.Module):
 
     def forward(self, x: Tensor, t: Union[float, Tensor], c: Optional[Tensor] = None) -> Tensor:
         return self.score(x, t, self.forcing)
+
+
+class LocalScoreDiT(nn.Module):
+    r"""The Kolmogorov window kernel as a diffusion transformer
+    (:class:`~sda_tpu_torch.nn.dit.DiT`): the state channels and the forcing
+    ``sin(4 b)`` in, the state channels out, leading axes flattened around the
+    network and ``t`` broadcast over them, ``t`` in ``[0, 1]`` scaled by
+    1000 into the DiT's timestep embedder, whose frequencies are set for
+    steps up to 1000.
+
+    Arguments:
+        channels: The number of state channels.
+        size: The spatial grid size.
+        patch_size / hidden_size / depth / num_heads / mlp_ratio: The DiT's.
+        dtype: The compute dtype (``None`` = float32).
+    """
+
+    def __init__(
+        self,
+        channels: int,
+        size: int = 64,
+        patch_size: int = 2,
+        hidden_size: int = 1152,
+        depth: int = 28,
+        num_heads: int = 16,
+        mlp_ratio: float = 4.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+
+        self.register_buffer('forcing', kolmogorov_forcing(size), persistent=False)
+
+        self.dit = DiT(
+            input_size=size,
+            patch_size=patch_size,
+            in_channels=channels + 1,
+            out_channels=channels,
+            hidden_size=hidden_size,
+            depth=depth,
+            num_heads=num_heads,
+            mlp_ratio=mlp_ratio,
+            dtype=dtype,
+        )
+
+    def forward(self, x: Tensor, t: Union[float, Tensor], c: Optional[Tensor] = None) -> Tensor:
+        y, forcing = broadcast(x, self.forcing, ignore=3)
+        y = torch.cat((y, forcing), dim=-3)
+
+        batch = x.shape[:-3]
+        y = y.reshape((-1,) + y.shape[-3:])
+        t = torch.as_tensor(t, device=x.device).broadcast_to(batch).reshape(-1)
+
+        return self.dit(y, 1000 * t).reshape(x.shape).to(x.dtype)
 
 
 def bind_eps(module: nn.Module, params: Dict[str, Tensor]) -> nn.Module:

@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from ...diffusion import LocalScoreUNet, MCScoreNet, bind_eps
+from ...diffusion import LocalScoreDiT, LocalScoreUNet, MCScoreNet, bind_eps
 from ...dynamics import KolmogorovFlow
 from ...parallel import ShardedMCScoreNet
 from ...parallel.mesh import axis_size
@@ -35,6 +35,10 @@ def make_chain(size: int = 256, device: Union[str, torch.device] = 'cuda') -> Ko
     return KolmogorovFlow(size=size, dt=0.2, device=device)
 
 
+#: The configuration keys of a DiT window kernel (``arch: 'dit'``).
+DIT_KEYS = ('patch_size', 'hidden_size', 'depth', 'num_heads', 'mlp_ratio')
+
+
 def make_score(
     window: int = 5,
     embedding: int = 64,
@@ -44,10 +48,20 @@ def make_score(
     activation: str = 'SiLU',
     size: int = 64,
     bf16: bool = False,
+    arch: str = 'unet',
     **absorb,
-) -> LocalScoreUNet:
-    r"""The forcing-conditioned window kernel: a circular-padded ScoreUNet
-    over ``window * 2`` channels with the fixed ``sin(4 b)`` context."""
+) -> Union[LocalScoreUNet, LocalScoreDiT]:
+    r"""The forcing-conditioned window kernel over ``window * 2`` channels
+    with the fixed ``sin(4 b)`` context: a circular-padded ScoreUNet, or with
+    ``arch='dit'`` a diffusion transformer sized by the :data:`DIT_KEYS`
+    among ``absorb``."""
+
+    dtype = torch.bfloat16 if bf16 else None
+    if arch == 'dit':
+        return LocalScoreDiT(channels=window * 2, size=size, dtype=dtype,
+                             **{k: absorb[k] for k in DIT_KEYS if k in absorb})
+    if arch != 'unet':
+        raise ValueError(f"unknown score network '{arch}'")
 
     return LocalScoreUNet(
         channels=window * 2,
@@ -58,13 +72,13 @@ def make_score(
         kernel_size=kernel_size,
         activation=ACTIVATIONS[activation],
         circular=True,
-        dtype=torch.bfloat16 if bf16 else None,
+        dtype=dtype,
     )
 
 
 def load_score(
     runpath: Path, device: Union[str, torch.device] = 'cuda', **kwargs,
-) -> Tuple[LocalScoreUNet, dict]:
+) -> Tuple[Union[LocalScoreUNet, LocalScoreDiT], dict]:
     r"""Rebuilds a run's score from ``config.json`` + ``state.msgpack``
     (``kwargs`` override the config, e.g. ``bf16=False``)."""
 

@@ -2,8 +2,10 @@ r"""Analytic FLOP accounting for the score networks.
 
 Counterpart of :mod:`sda_tpu.nn.flops`, kept as the port's own copy. These
 counters walk the module structure of :class:`sda_tpu_torch.nn.UNet` and
-:class:`sda_tpu_torch.diffusion.ScoreUNet` and count each multiply-accumulate
-of every convolution and dense layer as 2 FLOPs. Elementwise work (norms,
+:class:`sda_tpu_torch.diffusion.ScoreUNet` (and of the diffusion transformer,
+:class:`sda_tpu_torch.nn.dit.DiT`, which the JAX package does not have) and
+count each multiply-accumulate of every convolution and dense layer, and of
+attention's two products, as 2 FLOPs. Elementwise work (norms,
 activations, additions) is left out: it is O(channels x pixels) against the
 convolutions' O(channels^2 x pixels x K^d), and a share of peak leaves it out
 by convention.
@@ -139,6 +141,38 @@ def score_unet_flops(
     total += dense_flops(32, 256) + dense_flops(256, embedding)
 
     return total
+
+
+def dit_flops(
+    in_channels: int,
+    out_channels: int,
+    input_size: int,
+    patch_size: int = 2,
+    hidden_size: int = 1152,
+    depth: int = 28,
+    mlp_ratio: float = 4.0,
+    frequency_embedding_size: int = 256,
+) -> int:
+    r"""Forward FLOPs of one :class:`~sda_tpu_torch.nn.dit.DiT` evaluation on
+    a single square field of side ``input_size``, with ``T`` tokens of width
+    ``D``: the patch convolution, the timestep embedder's two Linears, per
+    block the adaLN Linear (``D -> 6 D``, once per field), the qkv, output and
+    two MLP Linears per token and attention's ``q k^T`` and ``p v`` (``4 T^2
+    D``), and the final layer's adaLN and Linear."""
+
+    tokens = (input_size // patch_size) ** 2
+    d, m = hidden_size, int(hidden_size * mlp_ratio)
+    block = (
+        dense_flops(d, 6 * d)
+        + tokens * (dense_flops(d, 3 * d) + dense_flops(d, d) + dense_flops(d, m) + dense_flops(m, d))
+        + 4 * tokens**2 * d
+    )
+    return (
+        conv_flops(tokens, in_channels, d, patch_size**2)
+        + dense_flops(frequency_embedding_size, d) + dense_flops(d, d)
+        + depth * block
+        + dense_flops(d, 2 * d) + tokens * dense_flops(d, patch_size**2 * out_channels)
+    )
 
 
 def guided_sampler_flops(

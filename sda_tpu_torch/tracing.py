@@ -20,7 +20,11 @@ Spans:
   chunk; a checkpointed chunk's recompute is a second span);
 - ``train.forward`` / ``train.backward`` / ``train.optimizer``: the phases of
   :class:`~sda_tpu_torch.train.Trainer`'s step;
-- ``kolmogorov.substep``: :meth:`~sda_tpu_torch.dynamics.KolmogorovFlow.substep`.
+- ``kolmogorov.substep``: :meth:`~sda_tpu_torch.dynamics.KolmogorovFlow.substep`;
+- ``dit.attention``: each DiT block's attention kernel call
+  (:func:`~sda_tpu_torch.nn.dit.attention`);
+- ``dit.adaln``: each DiT block's two LayerNorm-and-modulate sites and its
+  two gated residual adds (:class:`~sda_tpu_torch.nn.dit.DiTBlock`).
 
 Counters:
 
@@ -32,7 +36,9 @@ Counters:
   ``unet.act_pad_bwd``: launches of those kernels
   (:mod:`~sda_tpu_torch.ops.unet_kernels`), forward and backward;
 - ``dft.rfft2`` / ``dft.irfft2``: launches of the DFT kernels
-  (:data:`~sda_tpu_torch.ops.dft_kernels.launches` reads them).
+  (:data:`~sda_tpu_torch.ops.dft_kernels.launches` reads them);
+- ``dit.blocks`` / ``dit.attention``: the windows (batch) of each DiT block
+  call and of each of its attention calls, summed.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ counters: Dict[str, int] = {
     'unet.windows': 0, 'unet.blocks': 0, 'unet.blocks_fused': 0,
     'unet.norm_pad': 0, 'unet.norm_pad_bwd': 0, 'unet.act_pad': 0, 'unet.act_pad_bwd': 0,
     'dft.rfft2': 0, 'dft.irfft2': 0,
+    'dit.blocks': 0, 'dit.attention': 0,
 }
 
 
