@@ -10,8 +10,10 @@ Langevin correction). Before that it builds the kernels, holds each one
 against its plain PyTorch version at the solver's shapes and batches and at
 odd ones, and times every cluster size, then holds the U-Net block kernels
 (``csrc/unet_block.cu``) against theirs at ``unet_0``'s three levels and
-times them; after it, it checks the main path's launch counts, the U-Net
-kernels' among them, checks one solver transition through the kernels against the
+times them, and DiT's adaLN kernels (``csrc/dit_block.cu``) against theirs
+at ``assim64_dit``'s shape, timed against today's PyTorch chain, with one
+guided evaluation of DiT-XL/2's widths whose every block runs on them; after
+it, it checks the main path's launch counts, the U-Net kernels' among them, checks one solver transition through the kernels against the
 plain transforms, and profiles one transition of one field.
 
 Then the training path: ``unet_0``'s eps in bf16 against float32; training
@@ -117,7 +119,8 @@ from sda_tpu_torch.entry import entry
 from sda_tpu_torch.experiments.kolmogorov import eval as kolmogorov_eval
 from sda_tpu_torch.experiments.kolmogorov import hbm_probe, sweep_guidance, sweep_methods, sweep_solver
 from sda_tpu_torch.experiments.kolmogorov import validate_solver
-from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, get_scenario, resimulate, scenario_label
+from sda_tpu_torch.experiments.kolmogorov.assimilate import assimilate, coarse_observation, get_scenario, resimulate
+from sda_tpu_torch.experiments.kolmogorov.assimilate import scenario_label
 from sda_tpu_torch.experiments.kolmogorov.assimilate import main as assimilate_main
 from sda_tpu_torch.experiments.kolmogorov import train as kolmogorov_train
 from sda_tpu_torch.experiments.kolmogorov.generate import simulate, split_bounds
@@ -135,7 +138,8 @@ from sda_tpu_torch.experiments.qg import generate as qg_generate
 from sda_tpu_torch.experiments.qg import utils as qg_utils
 from sda_tpu_torch.experiments.qg.train import CONFIG as QG_CONFIG
 from sda_tpu_torch.nn import guided_sampler_flops, reset_parameters, score_unet_flops
-from sda_tpu_torch.ops import RealDFT2, dft_kernels, unet_kernels
+from sda_tpu_torch.nn.dit import modulate, norm
+from sda_tpu_torch.ops import RealDFT2, dft_kernels, dit_kernels, unet_kernels
 from sda_tpu_torch.parallel import ShardedMCScoreNet, init_multihost, make_mesh
 from sda_tpu_torch.parallel.demo import equal_on_all_ranks, free_port, run_ranks
 from sda_tpu_torch.train import TrajectoryDataset, Trainer, load_params, params_from_flax, save_params
@@ -161,6 +165,15 @@ UNET_PADS = ((1, 1), (1, 1))
 UNET_TOL = 2.0 ** -7
 UNET_COUNTERS = ('unet.blocks', 'unet.blocks_fused', 'unet.norm_pad', 'unet.norm_pad_bwd', 'unet.act_pad',
                  'unet.act_pad_bwd')
+
+# DiT's adaLN kernels (csrc/dit_block.cu) at assim64_dit's shape: 28 windows
+# of 1,024 tokens of 1,152 (DiT-XL/2 over 32 frames of 64^2), (B, N, D); held
+# to their plain versions within UNET_TOL, as
+# tests/test_torch_dit_kernels_gpu.py holds them. The guided evaluation runs
+# DiT-XL/2's widths at DIT_DEPTH blocks.
+DIT_SHAPE = (28, 1024, 1152)
+DIT_DEPTH = 2
+DIT_KERNELS = ('norm_mod', 'norm_mod_bwd', 'gated_norm_mod', 'gated_norm_mod_bwd', 'gated_add', 'gated_add_bwd')
 
 REPO = Path(__file__).resolve().parent
 UNET_0 = REPO / 'experiments/kolmogorov/storage/runs/unet_0'
@@ -672,6 +685,166 @@ def check_unet_kernels(device):
             log(f'  {name} N={n} {h}x{w}x{c}: error {err:.3f} of the tolerance; device ms (CUDA graph) kernel '
                 f'{ms:.4f}, plain {plain_ms:.4f}; bound {bound:.4f} (bytes, {bound / ms:.1%} reached)')
     return rows
+
+
+def dit_kernel_bytes(b, n, d):
+    r"""Bytes each DiT kernel must move at ``(B, N, D)``, each input read once
+    and each output written once: token rows (bf16), the modulation vectors
+    it reads and the statistics (float32) it writes or reads."""
+
+    act, vec, stats = 2 * b * n * d, 2 * b * d, 8 * b * n
+    return {
+        'norm_mod': 2 * act + 2 * vec + stats,              # x; h
+        'norm_mod_bwd': 3 * act + vec + stats,              # dh, x; dx
+        'gated_norm_mod': 4 * act + 3 * vec + stats,        # x, a; x', h
+        'gated_norm_mod_bwd': 5 * act + 2 * vec + stats,    # dh, dx', x'; dx, da
+        'gated_add': 3 * act + vec,                         # x, m; y
+        'gated_add_bwd': 2 * act + vec,                     # dy; dm
+    }
+
+
+def kernels_ms(fn, calls=10):
+    r"""Device time of one call of ``fn``: the summed time of the kernels it
+    launches, by the profiler over ``calls`` calls after a warm-up. For
+    chains of PyTorch calls under autograd, whose launches on the host may
+    take longer than their work on the device."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in mfu_attribution.device_kernels(prof)) / calls / 1e3
+
+
+def check_dit_kernels(device):
+    r"""DiT's adaLN kernels against their plain versions at :data:`DIT_SHAPE`
+    (the vectors views of one ``(B, 6 D)`` modulation, as ``adaln`` gives
+    them; backward without the vectors' gradients, as the guided sampler
+    asks): the worst error as a share of the tolerance, then device ms
+    (:func:`device_ms`, the L2 warm between calls) against the byte bound
+    at 3.35 TB/s, the plain version's and today's PyTorch chain's
+    (``layer_norm``, ``mul``, ``add``; backward by autograd, :func:`kernels_ms`).
+    The vectors' gradients are held within 1e-4 of their largest. Returns
+    the rows by kernel."""
+
+    dk = dit_kernels
+    g = torch.Generator(device=device).manual_seed(19)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=device)).to(torch.bfloat16)
+
+    def share(a, b):
+        r"""The worst error of a kernel's output, or outputs, as a share of the tolerance."""
+
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return max(((p.float() - q.float()).abs() / (UNET_TOL * (1 + q.float().abs()))).max().item()
+                   for p, q in zip(a, b))
+
+    b, n, d = DIT_SHAPE
+    x, a = randn(b, n, d), randn(b, n, d)
+    shift, scale, gate = randn(b, 6 * d, scale=0.5).chunk(6, dim=1)[:3]
+    dh, ds = randn(b, n, d), randn(b, n, d)
+    h, mean, rstd = dk.launch_norm_modulate(x, shift, scale)
+    xp, _, mean2, rstd2 = dk.launch_gated_norm_modulate(x, gate, a, shift, scale)
+
+    def chain(fn, *inputs):
+        r"""Today's chain on fresh leaves: its forward, and its input VJP."""
+
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        cots = (dh, ds)[:len(out)]
+        return (lambda: fn(*inputs)), (lambda: torch.autograd.grad(out, leaves, cots, retain_graph=True))
+
+    def plain_norm_mod(x, shift, scale):
+        return modulate(norm(x), shift, scale)
+
+    def plain_gated(x, gate, a, shift, scale):
+        xp = x + gate.unsqueeze(1) * a
+        return xp, modulate(norm(xp), shift, scale)
+
+    def plain_add(x, gate, m):
+        return x + gate.unsqueeze(1) * m
+
+    norm_fwd, norm_bwd = chain(lambda x: plain_norm_mod(x, shift, scale), x)
+    gated_fwd, gated_bwd = chain(lambda x, a: plain_gated(x, gate, a, shift, scale), x, a)
+    add_fwd, add_bwd = chain(lambda x, m: plain_add(x, gate, m), x, a)
+    calls = {
+        'norm_mod': (lambda: dk.launch_norm_modulate(x, shift, scale)[0],
+                     lambda: dk.norm_modulate_plain(x, shift, scale)[0], norm_fwd),
+        'norm_mod_bwd': (lambda: dk.launch_norm_modulate_bwd(dh, x, mean, rstd, scale)[0],
+                         lambda: dk.norm_modulate_bwd_plain(dh, None, x, mean, rstd, scale)[0], norm_bwd),
+        'gated_norm_mod': (lambda: dk.launch_gated_norm_modulate(x, gate, a, shift, scale)[:2],
+                           lambda: dk.gated_norm_modulate_plain(x, gate, a, shift, scale)[:2], gated_fwd),
+        'gated_norm_mod_bwd': (lambda: dk.launch_gated_norm_modulate_bwd(dh, ds, xp, mean2, rstd2, scale, gate)[:2],
+                               lambda: dk.norm_modulate_bwd_plain(dh, ds, xp, mean2, rstd2, scale, gate), gated_bwd),
+        'gated_add': (lambda: dk.launch_gated_add(x, gate, a), lambda: dk.gated_add_plain(x, gate, a), add_fwd),
+        'gated_add_bwd': (lambda: dk.launch_gated_add_bwd(dh, gate)[0], lambda: dk.gated_add_bwd_plain(dh, gate),
+                          add_bwd),
+    }
+    # The vectors' gradients (training): per-tile sums, then the tiles in order.
+    sums = (dk.launch_norm_modulate_bwd(dh, x, mean, rstd, scale, True)[1:]
+            + dk.launch_gated_norm_modulate_bwd(dh, ds, xp, mean2, rstd2, scale, gate, a)[2:]
+            + dk.launch_gated_add_bwd(dh, gate, a)[1:])
+    dx = dk.launch_gated_norm_modulate_bwd(dh, ds, xp, mean2, rstd2, scale, gate)[0]
+    want = (dk.vector_grads_plain(dh, x, mean, rstd)[:2] + dk.vector_grads_plain(dh, xp, mean2, rstd2, dx, a)
+            + dk.vector_grads_plain(None, None, None, None, dh, a)[2:])
+    sum_err = max(((s - w).abs().max() / w.abs().max()).item() for s, w in zip(sums, want))
+    check(sum_err <= 1e-4, f'the vectors\' gradients differ from the plain sums by {sum_err:.3e} of their largest')
+    log(f'  dit vectors\' gradients at {DIT_SHAPE}: max|err| {sum_err:.3e} of their largest (tol 1e-4)')
+
+    nbytes = dit_kernel_bytes(b, n, d)
+    rows = {}
+    for name, (kernel, plain, today) in calls.items():
+        err = share(kernel(), plain())
+        check(err <= 1, f'{name} at {DIT_SHAPE} differs from its plain version by {err:.3f} of the tolerance')
+        ms, plain_ms, chain_ms = device_ms(kernel), device_ms(plain), kernels_ms(today)
+        bound = nbytes[name] / PEAK_BYTES * 1e3
+        rows[name] = {'err_share': err, 'ms': ms, 'plain_ms': plain_ms, 'chain_ms': chain_ms, 'bound_ms': bound,
+                      'bytes': nbytes[name]}
+        log(f'  {name} {DIT_SHAPE}: error {err:.3f} of the tolerance; device ms kernel {ms:.4f} (CUDA graph), plain '
+            f'{plain_ms:.4f}, today\'s chain {chain_ms:.4f} (its kernels); bound {bound:.4f} (bytes, {bound / ms:.1%} '
+            'reached)')
+    return rows
+
+
+def dit_guided_blocks(device):
+    r"""One guided evaluation (``GaussianScore``: forward and input VJP) of
+    DiT-XL/2's widths at :data:`DIT_DEPTH` blocks over the 28 windows of a
+    32-frame trajectory, frozen bf16 parameters drawn from a seed: every
+    block call on the kernels (``dit.blocks_fused == dit.blocks``), each
+    kernel launched once per block (``norm_mod`` once more, the final
+    layer's), forward and backward. Returns the counters."""
+
+    torch.manual_seed(19)
+    module = make_score(arch='dit', window=5, size=64, patch_size=2, hidden_size=1152, depth=DIT_DEPTH,
+                        num_heads=16, mlp_ratio=4.0, bf16=True)
+    with torch.no_grad():
+        for p in module.parameters():  # adaLN-Zero's zeros would leave every block the identity
+            p.normal_(0.0, 0.02)
+    module = module.to(device).requires_grad_(False)
+    truth = torch.randn(1, 32, 2, 64, 64, device=device)
+    y = coarse_observation(truth)
+    guided = GaussianScore(y=y, A=coarse_observation, std=0.1, gamma=1e-2,
+                           sde=VPSDE(eps=make_trajectory_eps(module, 5), shape=()))
+    names = ('dit.blocks', 'dit.blocks_fused') + tuple(f'dit.{k}' for k in DIT_KERNELS)
+    before = {k: tracing.counters[k] for k in names}
+    s = guided(torch.randn_like(truth), torch.tensor(0.5, device=device))
+    torch.cuda.synchronize()
+    counts = {k: tracing.counters[k] - before[k] for k in names}
+    windows = 32 - 5 + 1
+    expected = {'dit.blocks': DIT_DEPTH * windows, 'dit.blocks_fused': DIT_DEPTH * windows}
+    for k in DIT_KERNELS:
+        expected[f'dit.{k}'] = DIT_DEPTH + (1 if k.startswith('norm_mod') else 0)
+    log(f'DiT counters on a guided evaluation: {counts} (expected {expected}); |s| {s.abs().max().item():.3e}')
+    check(bool(torch.isfinite(s).all()), 'the guided DiT evaluation is not finite')
+    check(counts == expected, f'DiT counters {counts}, expected {expected}')
+    return counts
 
 
 def zero_unet_counters():
@@ -2119,6 +2292,13 @@ def main():
         log(f'nvcc: {time.perf_counter() - t:.1f}s -> {path}')
         unet_rows = check_unet_kernels(device)
 
+    with phase('dit kernels against their plain versions'):
+        t = time.perf_counter()
+        path, _ = dit_kernels.build()
+        log(f'nvcc: {time.perf_counter() - t:.1f}s -> {path}')
+        dit_rows = check_dit_kernels(device)
+        dit_counts = dit_guided_blocks(device)
+
     # -- The main path: truth, then assimilation. Counts from here on. ----
     dft_kernels.reset_launches()
 
@@ -2319,6 +2499,11 @@ def main():
                 'err_share': max(level['err_share'] for level in levels.values()),
                 'ms': row['ms'], 'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'], 'bound_by': 'bytes',
                 'levels': levels,
+            })
+        for name, row in dit_rows.items():
+            kernels.append({
+                'name': name, 'route': 'cuda', 'source': 'sda_tpu_torch/csrc/dit_block.cu', 'replaces': None,
+                'launches': dit_counts[f'dit.{name}'], **row, 'bound_by': 'bytes', 'shape': DIT_SHAPE,
             })
         log(f'wall {time.perf_counter() - T0:.1f}s; truth {truth_s:.1f}s; assimilation {assim_s:.1f}s; '
             f'training data {data_s:.1f}s; unet_0 {step_ms:.1f} ms per step; Lorenz data {lorenz_data_s:.1f}s, '

@@ -23,6 +23,13 @@ and :class:`~sda_tpu_torch.nn.layers.Conv`: float32 parameters, products in
 statistics and the GELU run in float32 inside their kernels. On a CUDA input
 the attention may use only a fused kernel (cuDNN, flash or memory-efficient),
 never the math path that holds every head's ``N x N`` scores.
+
+The adaLN glue (LayerNorm + modulate, the gated residuals) runs as PyTorch's
+chain of ``layer_norm``, ``mul`` and ``add`` (``forward_plain``), or, for the
+inputs :func:`~sda_tpu_torch.ops.dit_kernels.fits` names (CUDA bf16 rows of
+a width 8 divides, up to 2048), as one hand-written pass per site
+(``forward_fused``): the statistics and the modulation in float32, each
+output rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import dit_kernels
 from ..tracing import counters, span
 from .layers import Conv, Dense
 
@@ -168,7 +176,15 @@ class DiTBlock(nn.Module):
 
     def forward(self, x: Tensor, c: Tensor) -> Tensor:
         counters['dit.blocks'] += x.shape[0]
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln(self.adaLN_modulation, c, 6)
+        vectors = adaln(self.adaLN_modulation, c, 6)
+        if dit_kernels.fits(x, vectors[0]):
+            return self.forward_fused(x, *vectors)
+        return self.forward_plain(x, *vectors)
+
+    def forward_plain(self, x: Tensor, shift_msa: Tensor, scale_msa: Tensor, gate_msa: Tensor, shift_mlp: Tensor,
+                      scale_mlp: Tensor, gate_mlp: Tensor) -> Tensor:
+        r"""The block on its six modulation vectors, the glue in PyTorch."""
+
         with span('dit.adaln'):
             h = modulate(norm(x), shift_msa, scale_msa)
         h = self.attn(h)
@@ -178,6 +194,24 @@ class DiTBlock(nn.Module):
         h = self.mlp(h)
         with span('dit.adaln'):
             return x + gate_mlp.unsqueeze(1) * h
+
+    def forward_fused(self, x: Tensor, shift_msa: Tensor, scale_msa: Tensor, gate_msa: Tensor, shift_mlp: Tensor,
+                      scale_mlp: Tensor, gate_mlp: Tensor) -> Tensor:
+        r"""The block on its six modulation vectors, each glue site one
+        kernel (:mod:`~sda_tpu_torch.ops.dit_kernels`); counts the block's
+        windows in ``dit.blocks_fused``."""
+
+        with span('dit.adaln'):
+            x = x.contiguous()  # the first block's rows come transposed from the patch embedding
+            h = dit_kernels.norm_modulate(x, shift_msa, scale_msa)
+        h = self.attn(h)
+        with span('dit.adaln'):
+            x, h = dit_kernels.gated_norm_modulate(x, gate_msa, h, shift_mlp, scale_mlp)
+        h = self.mlp(h)
+        with span('dit.adaln'):
+            x = dit_kernels.gated_add(x, gate_mlp, h)
+        counters['dit.blocks_fused'] += x.shape[0]
+        return x
 
 
 class FinalLayer(nn.Module):
@@ -191,7 +225,10 @@ class FinalLayer(nn.Module):
 
     def forward(self, x: Tensor, c: Tensor) -> Tensor:
         shift, scale = adaln(self.adaLN_modulation, c, 2)
-        x = modulate(norm(x), shift, scale)
+        if dit_kernels.fits(x, shift):
+            x = dit_kernels.norm_modulate(x.contiguous(), shift, scale)
+        else:
+            x = modulate(norm(x), shift, scale)
         return self.linear.forward_kept(x)
 
 

@@ -38,7 +38,13 @@ Counters:
 - ``dft.rfft2`` / ``dft.irfft2``: launches of the DFT kernels
   (:data:`~sda_tpu_torch.ops.dft_kernels.launches` reads them);
 - ``dit.blocks`` / ``dit.attention``: the windows (batch) of each DiT block
-  call and of each of its attention calls, summed.
+  call and of each of its attention calls, summed; ``dit.blocks_fused`` the
+  windows of the block calls whose three glue sites launched kernels
+  (:meth:`~sda_tpu_torch.nn.dit.DiTBlock.forward_fused`);
+- ``dit.norm_mod`` / ``dit.norm_mod_bwd`` / ``dit.gated_norm_mod`` /
+  ``dit.gated_norm_mod_bwd`` / ``dit.gated_add`` / ``dit.gated_add_bwd``:
+  launches of those kernels (:mod:`~sda_tpu_torch.ops.dit_kernels`), forward
+  and backward.
 """
 
 from __future__ import annotations
@@ -56,7 +62,9 @@ counters: Dict[str, int] = {
     'unet.windows': 0, 'unet.blocks': 0, 'unet.blocks_fused': 0,
     'unet.norm_pad': 0, 'unet.norm_pad_bwd': 0, 'unet.act_pad': 0, 'unet.act_pad_bwd': 0,
     'dft.rfft2': 0, 'dft.irfft2': 0,
-    'dit.blocks': 0, 'dit.attention': 0,
+    'dit.blocks': 0, 'dit.attention': 0, 'dit.blocks_fused': 0,
+    'dit.norm_mod': 0, 'dit.norm_mod_bwd': 0, 'dit.gated_norm_mod': 0, 'dit.gated_norm_mod_bwd': 0,
+    'dit.gated_add': 0, 'dit.gated_add_bwd': 0,
 }
 
 
